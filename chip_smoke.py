@@ -7,9 +7,9 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
 
 1. Requires torch.cuda.is_available(); prints the card's name and power
    limit (nvidia-smi).
-2. Builds the five CUDA kernels (csrc/*.cu, one nvcc per source, all
-   started together) and the native host library (native/entropy.cpp,
-   g++), and prints the build seconds.
+2. Builds the seven CUDA kernel sources (csrc/*.cu, one nvcc per source,
+   all started together) and the native host library
+   (native/entropy.cpp, g++), and prints the build seconds.
 3. Holds each kernel against its plain PyTorch version on the card:
    - K1 (intra_pred_all), K2 (satd_modes), K3 (plan_trial) on 4 smooth
      1920x1080 luma frames at 8 and at 10 bits, every plan class 4..64:
@@ -23,8 +23,16 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      class and per picture (all classes into one buffer), the one fetch
      of the picture's costs apart (pinned and pageable), and a whole
      FramePresel (upload, launches, fetch).
+   - K4's gathered entry (presel_costs, the reference's inputs) on the
+     same picture and classes: bit-exact against the plain version and
+     equal to the plane form; timed per class.
    - K5 (frame_me) on two 1920x1080 pictures at R = 64: MVs equal,
      costs within rtol 1e-6.
+   - K6 (fwd/inv_transform_batch) and K7 (quant/dequant_batch) bit-exact
+     on the residuals of 1920x1080 pictures (source minus search_step's
+     chosen prediction) for every square class 4..64 plus 8x4 and 16x8,
+     at 8 and 10 bits, QPs 22, 37, 51 and both slice types; timed per
+     class at 10 bits, QP 37, intra.
 4. The main paths, each through vvenc_tpu_torch.__main__.main with
    --device cuda --verify, the launch counts set to 0 just before and
    read just after, the port's decoder giving back every picture of the
@@ -38,7 +46,18 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
    - config 2 (832x480, 17 frames, QP 37, --gop-size 8 --intra-period 0
      --preset faster) and config 3 cut to 5 frames (1920x1080, QP 32,
      --preset medium --gop-size 2 --intra-period 0 --qpa 1 --wpp
-     --threads 2), both with --set me_mode=device: K5 must launch.
+     --threads 2), both with --set me_mode=device: K5 must launch;
+   - the mesh path, on a 2x2 mesh of 4 positions spread over the visible
+     cards (several on one card, each on its own stream, when there are
+     fewer cards; the run prints how many): search_step on the 1080p
+     16x16 and 64x64 grids equal to its plain route, sharded_presel_costs
+     equal to the unsharded run on all 23 MTT classes of a 1080p picture,
+     sharded_encode_step2d on two 1080p pictures (16x16, G = 2, T = 2 and
+     4) equal to a replay with the shard-level permutation, and the
+     streams of config 1 and 1080p faster with intra_plan.MESH and of
+     1080p medium with intra_presel.MESH byte-identical to the unsharded
+     encodes above (and decoded); K1-K4's gathered entry, K6 and K7 must
+     launch.  Then graft_entry.dryrun_multichip(4).
 5. Prints a {"kernels": [...]} line, then the card line, then the last
    line {"ok": true, "device": {...}}.
 
@@ -65,6 +84,7 @@ INT32_OPS_PER_S = 67e12
 COST_RTOL = 1e-5
 ME_COST_RTOL = 1e-6
 
+# kernel entry -> (source, the TPU program it replaces)
 KERNELS = {
     "intra_pred_all": ("vvenc_tpu_torch/csrc/intra_pred_all.cu",
                        "vvenc_tpu/ops/intra_presel.py:63"),
@@ -76,8 +96,28 @@ KERNELS = {
                      "vvenc_tpu/ops/intra_presel.py:197"),
     "frame_me": ("vvenc_tpu_torch/csrc/frame_me.cu",
                  "vvenc_tpu/ops/me.py:92"),
+    "presel_costs_gathered": ("vvenc_tpu_torch/csrc/presel_costs.cu",
+                              "vvenc_tpu/ops/intra_presel.py:197"),
+    "fwd_transform_batch": ("vvenc_tpu_torch/csrc/transform_batch.cu",
+                            "vvenc_tpu/ops/transforms.py:496"),
+    "inv_transform_batch": ("vvenc_tpu_torch/csrc/transform_batch.cu",
+                            "vvenc_tpu/ops/transforms.py:524"),
+    "quant_batch": ("vvenc_tpu_torch/csrc/quant_batch.cu",
+                    "vvenc_tpu/ops/transforms.py:542"),
+    "dequant_batch": ("vvenc_tpu_torch/csrc/quant_batch.cu",
+                      "vvenc_tpu/ops/transforms.py:565"),
 }
 PLAN_KERNELS = ("intra_pred_all", "satd_modes", "plan_trial")
+TR_KERNELS = ("fwd_transform_batch", "inv_transform_batch", "quant_batch",
+              "dequant_batch")
+MESH_KERNELS = PLAN_KERNELS + TR_KERNELS + ("presel_costs_gathered",)
+# K6/K7's classes: every square class and two rectangular ones
+TR_CLASSES = ((4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (8, 4), (16, 8))
+# the __global__ function of each K6/K7 entry, as the profiler names it
+TR_FUNCTIONS = {"fwd_transform_batch": "::fwd_kernel(",
+                "inv_transform_batch": "::inv_kernel(",
+                "quant_batch": "::quant_kernel(",
+                "dequant_batch": "::dequant_kernel("}
 
 
 def make_clip(path: str, w: int, h: int, frames: int) -> None:
@@ -138,6 +178,24 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_ms(torch, calls, reps: int) -> dict:
+    """Mean device milliseconds per launch of each CUDA kernel the calls
+    launch, by kernel name (torch.profiler's CUDA activity, after a
+    warm-up call each); empty when the profiler records no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / e.count / 1e3
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
 def work(name: str, B: int, s: int, k: int) -> tuple:
     """(bytes, int32 operations) the function needs for B blocks of s x s
     (each input read once, each output written once)."""
@@ -162,6 +220,31 @@ def presel_work(B: int, w: int, h: int, plane_bytes: int) -> tuple:
     the grid, writes [B, 67] int32; per prediction sample K1's 11 and
     K2's 9 operations (no intermediate is written)."""
     return plane_bytes + B * 67 * 4, B * 67 * w * h * (11 + 9)
+
+
+def gathered_work(B: int, w: int, h: int) -> tuple:
+    """(bytes, int32 operations) of K4's gathered entry on one class:
+    reads the blocks and both references (int32), writes [B, 67] int32;
+    the operations of the plane form."""
+    return (B * (w * h + 2 * w + 3 + 2 * h + 3 + 67) * 4,
+            B * 67 * w * h * (11 + 9))
+
+
+def tr_work(name: str, B: int, w: int, h: int) -> tuple:
+    """(bytes, int32 operations) of one K6 or K7 entry on B blocks of
+    w x h: the int32 input read once and the output written once; a
+    DCT-2 stage costs 2 operations per multiply-add and 4 per output (a
+    round, a shift, two clip compares), the forward pass's second stage
+    only for the 32x32 samples it keeps; quant 6 operations per sample
+    (abs, multiply, add, shift, sign, multiply), dequant 8 (two clip
+    compares, multiply, add, shift, two clip compares, a branch)."""
+    n = B * w * h
+    if name == "fwd_transform_batch":
+        kept = B * min(w, 32) * min(h, 32)
+        return 8 * n, n * (2 * w + 4) + kept * (2 * h + 4)
+    if name == "inv_transform_batch":
+        return 8 * n, n * (2 * h + 4) + n * (2 * w + 4)
+    return 8 * n, (6 if name == "quant_batch" else 8) * n
 
 
 def me_work(W: int, H: int, R: int) -> tuple:
@@ -281,20 +364,28 @@ def run_presel(torch, dev, pic, bd, reps, plain_reps):
         ck = S.presel_costs_plane(plane, pad, xs_d, ys_d, w, h, bd)
         inputs = S.plane_inputs(plane, pad, xs_d, ys_d, w, h)
         cr = S.presel_costs_ref(*inputs, w, h, bd)
+        cg = S.presel_costs(*inputs, w, h, bd)
         torch.cuda.synchronize()
         if not torch.equal(ck, cr):
             bad = (ck != cr).nonzero()[:5].tolist()
             fail(f"K4 presel_costs != plain at {w}x{h}, {bd}-bit "
                  f"({W}x{H}); first [b, mode]: {bad}")
+        if not torch.equal(cg, cr):
+            bad = (cg != cr).nonzero()[:5].tolist()
+            fail(f"K4 presel_costs (gathered) != plain at {w}x{h}, "
+                 f"{bd}-bit ({W}x{H}); first [b, mode]: {bad}")
         rec = {"w": w, "h": h, "B": B, "bit_depth": bd,
-               "work": presel_work(B, w, h, plane_bytes)}
+               "work": presel_work(B, w, h, plane_bytes),
+               "gathered_work": gathered_work(B, w, h)}
         if reps:
             rec["ms"] = cuda_ms(torch, lambda: S.presel_costs_plane(
                 plane, pad, xs_d, ys_d, w, h, bd), reps)
+            rec["gathered_ms"] = cuda_ms(torch, lambda: S.presel_costs(
+                *inputs, w, h, bd), reps)
             rec["plain_ms"] = cuda_ms(torch, lambda: S.presel_costs_ref(
                 *inputs, w, h, bd), plain_reps)
         recs.append(rec)
-        del ck, cr, inputs
+        del ck, cr, cg, inputs
     pic_rec = None
     if reps:
         total = sum(r["B"] for r in recs)
@@ -356,6 +447,266 @@ def run_me(torch, dev, srcs, R, reps, plain_reps):
                           reps),
             "plain_ms": cuda_ms(torch, lambda: M.frame_me_ref(
                 sp, rp, Wc, Hc, R), plain_reps)}
+
+
+def padded_plane(torch, dev, pic):
+    """The edge-padded int16 plane of a picture, on the card."""
+    from vvenc_tpu_torch.ops import intra_presel as S
+    return torch.from_numpy(np.pad(pic, S.FramePresel.PAD, mode="edge")
+                            .astype(np.int16)).to(dev)
+
+
+def grid_inputs(plane, W, H, w, h):
+    """The QT grid of (w, h) blocks of a padded plane and their
+    references, LPAD = 2 max(w, h) + 3 wide (what search_step's K1
+    takes): (blocks [B, h, w], tops, lefts) int32, B row-major."""
+    from vvenc_tpu_torch.ops import intra_presel as S
+    pad = S.FramePresel.PAD
+    xs, ys, _, _ = S._class_grid(W, H, w, h, mtt=False)
+    blocks = S.plane_inputs(plane, pad, xs, ys, w, h)[0]
+    m = max(w, h)
+    _, tops, lefts = S.plane_inputs(plane, pad, xs, ys, m, m)
+    return blocks, tops, lefts
+
+
+def residuals(torch, plane, W, H, w, h, bd):
+    """Source minus search_step's chosen prediction (K1 -> K2 -> the
+    first minimum) for the QT grid of (w, h) blocks."""
+    from vvenc_tpu_torch.ops import intra_presel as S
+    blocks, tops, lefts = grid_inputs(plane, W, H, w, h)
+    preds = S.predict_all_modes(tops, lefts, w, h, bd)
+    best = S.satd_batch(blocks, preds, w, h).argmin(dim=1)
+    B = blocks.shape[0]
+    pred = preds.gather(1, best.view(B, 1, 1, 1).expand(B, 1, h, w))[:, 0]
+    return blocks - pred.to(torch.int32)
+
+
+def run_tr(torch, dev, pics, reps, plain_reps):
+    """K6 and K7 against their plain versions, bit-exact, on the
+    residuals of one 1080p picture per bit depth, every class of
+    TR_CLASSES, QPs 22/37/51, both slice types; each entry timed per
+    class at 10 bits, QP 37, intra: CUDA events around back-to-back
+    wrapper calls ("ms") and the kernel's own device time from the
+    profiler ("device_ms", None where it records none).  Returns the
+    per-class records."""
+    from vvenc_tpu_torch.ops import transforms as T
+    recs = []
+    for bd, pic in pics.items():
+        H, W = pic.shape
+        plane = padded_plane(torch, dev, pic)
+        for (w, h) in TR_CLASSES:
+            resi = residuals(torch, plane, W, H, w, h, bd)
+            ck = T.fwd_transform_batch(resi, w, h, bd)
+            if not torch.equal(ck, T.fwd_transform_batch_ref(resi, w, h,
+                                                             bd)):
+                fail(f"K6 fwd_transform_batch != plain at {w}x{h}, {bd}-bit")
+            if not torch.equal(T.inv_transform_batch(ck, w, h, bd),
+                               T.inv_transform_batch_ref(ck, w, h, bd)):
+                fail(f"K6 inv_transform_batch != plain at {w}x{h}, {bd}-bit")
+            for qp in (22, 37, 51):
+                for intra in (True, False):
+                    qk = T.quant_batch(ck, w, h, qp, bd, intra)
+                    if not torch.equal(qk, T.quant_batch_ref(ck, w, h, qp,
+                                                             bd, intra)):
+                        fail(f"K7 quant_batch != plain at {w}x{h}, {bd}-bit,"
+                             f" QP {qp}, intra {intra}")
+                    if not torch.equal(T.dequant_batch(qk, w, h, qp, bd),
+                                       T.dequant_batch_ref(qk, w, h, qp,
+                                                           bd)):
+                        fail(f"K7 dequant_batch != plain at {w}x{h}, "
+                             f"{bd}-bit, QP {qp}")
+            torch.cuda.synchronize()
+            if bd != 10:
+                continue
+            B = resi.shape[0]
+            qk = T.quant_batch(ck, w, h, 37, bd)
+            args = {"fwd_transform_batch": (resi, w, h, bd),
+                    "inv_transform_batch": (ck, w, h, bd),
+                    "quant_batch": (ck, w, h, 37, bd),
+                    "dequant_batch": (qk, w, h, 37, bd)}
+            rec = {"w": w, "h": h, "B": B, "bit_depth": bd, "ms": {},
+                   "plain_ms": {}, "work": {}, "device_ms": {}}
+            for n in TR_KERNELS:
+                kern = getattr(T, n)
+                plain = getattr(T, n + "_ref")
+                a = args[n]
+                rec["ms"][n] = cuda_ms(torch, lambda: kern(*a), reps)
+                rec["plain_ms"][n] = cuda_ms(torch, lambda: plain(*a),
+                                             plain_reps)
+                rec["work"][n] = tr_work(n, B, w, h)
+            prof = device_ms(torch, [
+                (lambda n=n: getattr(T, n)(*args[n])) for n in TR_KERNELS],
+                reps)
+            for n, fname in TR_FUNCTIONS.items():
+                rec["device_ms"][n] = next(
+                    (v for k, v in prof.items() if fname in k), None)
+            recs.append(rec)
+    return recs
+
+
+def mesh_phase(torch, dev, kernels, clips, pic, report):
+    """The mesh path on 4 positions (2 x 2) spread over the visible
+    cards: the sharded programs against their unsharded runs, the
+    MESH-hooked encodes against the unsharded streams of phase 4, then
+    dryrun_multichip(4).  The kernels' counts are set to 0 just before
+    each path run (each hooked encode, the dry run) and read just after,
+    so the checks' own launches count nowhere.  Returns the counts of
+    those runs: {"encodes": {tag: counts}, "dryrun": counts}."""
+    from vvenc_tpu_torch import graft_entry
+    from vvenc_tpu_torch.ops import intra_plan, intra_presel as S
+    from vvenc_tpu_torch.parallel import mesh as M
+    cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i % cards) for i in range(4)]
+    mesh = M.make_mesh2d(devices)
+    print(f"phase 4: mesh path, {mesh.describe()}: "
+          f"{len(set(devices))} physical card(s), so nothing here measures "
+          f"multi-card scaling", flush=True)
+    H, W = pic.shape
+    plane = padded_plane(torch, dev, pic)
+    for s in (16, 64):
+        got = M.search_step(*grid_inputs(plane, W, H, s, s), w=s, h=s,
+                            qp=37)
+        ref = M.search_step_ref(*grid_inputs(plane, W, H, s, s), w=s, h=s,
+                                qp=37)
+        for name, g, r in zip(("best", "levels", "recon", "bits", "sse"),
+                              got, ref):
+            if not torch.equal(g, r):
+                fail(f"search_step {name} != its plain route at {s}x{s}")
+    shapes, mtt = S.shapes_for_config(128, 2)
+    pad = S.FramePresel.PAD
+    for (w, h) in shapes:
+        xs, ys, _, _ = S._class_grid(W, H, w, h, mtt)
+        inputs = S.plane_inputs(plane, pad, xs, ys, w, h)
+        costs, total = M.sharded_presel_costs(mesh, *inputs, w=w, h=h)
+        ref = S.presel_costs(*inputs, w, h)
+        if not torch.equal(costs, ref) or \
+                int(total) != int(ref.min(dim=1).values.sum()):
+            fail(f"sharded_presel_costs != unsharded at {w}x{h}")
+        del inputs, costs, ref
+    # what the hooks cost, in turns (unsharded, mesh, mesh, unsharded):
+    # a 1080p FramePresel (upload, gather, launches, one fetch) and
+    # config 1's plan batch (10 frames of 416x240, build_plans)
+    from vvenc_tpu_torch.encoder.intra_encoder import lambda_for_qp
+    csrcs = luma_frames(416, 240, 10, 10, seed=1)
+    lm = float(np.float32(lambda_for_qp(37, 10)))
+    ls = float(np.float32(lm) ** 0.5)
+    hook_ms = {}
+    for what, hook, call in (
+            ("FramePresel 1080p", S, lambda: S.FramePresel(
+                pic, 10, (shapes, mtt), device=dev)),
+            ("build_plans config 1", intra_plan,
+             lambda: intra_plan.build_plans(csrcs, 10, 64, 8, 43, [lm] * 10,
+                                            [ls] * 10, device=dev))):
+        times = {None: [], "mesh": []}
+        for m in (None, mesh, mesh, None):
+            hook.MESH = m
+            try:
+                t0 = time.perf_counter()
+                call()
+                times[None if m is None else "mesh"].append(
+                    (time.perf_counter() - t0) * 1e3)
+            finally:
+                hook.MESH = None
+        hook_ms[what] = {"unsharded_ms": min(times[None]),
+                         "mesh_ms": min(times["mesh"])}
+        print(f"phase 4: {what}: unsharded {min(times[None]):.3f} ms, on "
+              f"the mesh {min(times['mesh']):.3f} ms (min of 2, in turns)",
+              flush=True)
+    report["hook_ms"] = hook_ms
+    # two 1080p pictures, 16x16: [G, T, B] with T tile columns of blocks.
+    # With 2 positions along "tiles" the shard-level roll by Tl = T / 2
+    # pairs every block with the block half a picture to its right for
+    # both T, so both give the same pairs; a roll by one tile column would
+    # pair blocks W / T apart and fail the comparison.
+    s, G = 16, 2
+    two = [padded_plane(torch, dev, p) for p in luma_frames(W, H, 2, 10,
+                                                            seed=61)]
+    ins = [grid_inputs(pl, W, H, s, s) for pl in two]
+    ny, nx = H // s, W // s
+    for Tn in (2, 4):
+        tl = Tn // mesh.shape["tiles"]
+
+        def grid(k):
+            x = torch.stack([i[k] for i in ins])           # [G, ny*nx, ...]
+            x = x.reshape((G, ny, Tn, nx // Tn) + tuple(x.shape[2:]))
+            return x.transpose(1, 2).reshape(
+                (G, Tn, ny * (nx // Tn)) + tuple(x.shape[4:])).contiguous()
+        src, tops, lefts = grid(0), grid(1), grid(2)
+        B = src.shape[2]
+        best, q, rec, per_gop, total = M.sharded_encode_step2d(
+            mesh, w=s, h=s, qp=37)(src, src, tops, lefts)
+
+        def flat(x):
+            return x.reshape((G * Tn * B,) + tuple(x.shape[3:]))
+        r1 = M.search_step(flat(src), flat(tops), flat(lefts), w=s, h=s,
+                           qp=37)
+        nbr = torch.roll(r1[2].reshape(G, Tn, B, s, s)[..., -1], tl,
+                         dims=1).reshape(-1, s)
+        L = lefts.shape[-1]
+        l2 = torch.cat([nbr[:, :1], nbr, nbr[:, -1:].expand(-1, L - s - 1)],
+                       dim=1)
+        r2 = M.search_step(flat(src), flat(tops), l2, w=s, h=s, qp=37)
+        better = r2[4] + r2[3].to(torch.int64) < r1[4] + r1[3].to(torch.int64)
+        bits = torch.where(better, r2[3], r1[3])
+        exp = [torch.where(better, r2[0], r1[0]),
+               torch.where(better[:, None, None], r2[1], r1[1]),
+               torch.where(better[:, None, None], r2[2], r1[2])]
+        for name, g, e in zip(("best", "levels", "recon"), (best, q, rec),
+                              exp):
+            if not torch.equal(flat(g), e):
+                fail(f"sharded_encode_step2d {name} != the replay at T={Tn}")
+        if not torch.equal(per_gop, bits.reshape(G, -1).sum(dim=1)) or \
+                int(total) != int(bits.sum()):
+            fail(f"sharded_encode_step2d rate sums != the replay at T={Tn}")
+        print(f"phase 4: sharded_encode_step2d on 2 {W}x{H} pictures, T={Tn} "
+              f"({tl} tile column(s) per position): equal to the replay, "
+              f"{int(better.sum())} of {len(better)} blocks kept the "
+              f"re-trial", flush=True)
+    del two, ins
+    streams, enc_launches = {}, {}
+    for tag, hook, need, (clip, w, h, frames, preset, plan) in (
+            ("config1", intra_plan, PLAN_KERNELS, clips["config1"]),
+            ("hd_faster", intra_plan, PLAN_KERNELS, clips["hd_faster"]),
+            ("hd_medium", S, ("presel_costs_gathered",),
+             clips["hd_medium"])):
+        hook.MESH = mesh
+        kernels.reset_launches()
+        try:
+            _, secs = encode(torch, f"{tag}_mesh", clip, w, h, frames, 37,
+                             preset, ["--intra-period", "1"], plan)
+        finally:
+            hook.MESH = None
+        launches = dict(kernels.launches)
+        missing = [n for n in need if launches[n] < 1]
+        if missing:
+            fail(f"{tag} with {hook.__name__}.MESH: {missing} never "
+                 f"launched: {launches}")
+        enc_launches[tag] = launches
+        d = os.path.dirname(clip)
+        with open(os.path.join(d, f"{tag}.266"), "rb") as f:
+            a = f.read()
+        with open(os.path.join(d, f"{tag}_mesh.266"), "rb") as f:
+            b = f.read()
+        if a != b:
+            fail(f"{tag}: the stream with {hook.__name__}.MESH differs from "
+                 f"the unsharded encode ({len(b)} vs {len(a)} bytes)")
+        streams[tag] = {"bytes": len(a), "fps": frames / secs}
+        print(f"phase 4: {tag} with {hook.__name__.split('.')[-1]}.MESH: "
+              f"byte-identical to the unsharded stream ({len(a)} bytes), "
+              f"decode == recon, {frames / secs:.3f} fps, launches "
+              f"{launches}", flush=True)
+    # the dry run is the path that reaches search_step, and so K6/K7
+    kernels.reset_launches()
+    graft_entry.dryrun_multichip(4)
+    dry = dict(kernels.launches)
+    missing = [n for n in MESH_KERNELS if dry[n] < 1]
+    if missing:
+        fail(f"dryrun_multichip(4): {missing} never launched: {dry}")
+    print(f"phase 4: dryrun_multichip(4) launches {dry}", flush=True)
+    counts = {"encodes": enc_launches, "dryrun": dry}
+    report["mesh"] = {"describe": mesh.describe(), "cards": len(set(devices)),
+                      "streams": streams, "launches": counts}
+    return counts
 
 
 def encode_phase(torch, kernels, DEV, tag, clip, w, h, frames, qp, preset,
@@ -497,11 +848,11 @@ def main(argv=None) -> int:
     if not native.available():
         fail("the native library (native/entropy.cpp) did not build:\n"
              f"{native.BUILD_ERROR}")
-    missing = [n for n in KERNELS if not kernels.so_path(n).exists()]
+    missing = [n for n in kernels.SOURCES if not kernels.so_path(n).exists()]
     if missing:
         fail(f"kernels not built: {missing}")
-    print(f"phase 2: built {len(KERNELS)} kernels + native library in "
-          f"{t_build:.1f} s", flush=True)
+    print(f"phase 2: built {len(kernels.SOURCES)} kernel sources + native "
+          f"library in {t_build:.1f} s", flush=True)
     for n, log in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -561,9 +912,14 @@ def main(argv=None) -> int:
     pms = sum(r["ms"] for r in precs)
     pbound, pby = bound_ms(sum(r["work"][0] for r in precs),
                            sum(r["work"][1] for r in precs))
+    gms = sum(r["gathered_ms"] for r in precs)
+    gbound, gby = bound_ms(sum(r["gathered_work"][0] for r in precs),
+                           sum(r["gathered_work"][1] for r in precs))
     print(f"phase 3: K4 presel_costs bit-exact on {len(precs)} MTT classes "
           f"({W}x{H} 10-bit, {ppic['B']} candidates) and on an 832x480 "
-          f"8-bit crop; per picture {pms:.3f} ms summed over classes, "
+          f"8-bit crop, the gathered entry too; gathered per picture "
+          f"{gms:.3f} ms (bound {gbound:.3f} ms, {gby}); plane form per "
+          f"picture {pms:.3f} ms summed over classes, "
           f"{ppic['launch_ms']:.3f} ms launched back to back, bound "
           f"{pbound:.3f} ms ({pby}), plain "
           f"{sum(r['plain_ms'] for r in precs):.3f} ms; fetch of "
@@ -573,8 +929,8 @@ def main(argv=None) -> int:
           f"{ppic['frame_presel_ms']:.3f} ms", flush=True)
     for r in precs:
         print(f"  class {r['w']:2d}x{r['h']:<2d} B={r['B']:6d}: "
-              f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
-              f"{bound_ms(*r['work'])[0]:.3f})")
+              f"{r['ms']:.3f} ms (gathered {r['gathered_ms']:.3f}, plain "
+              f"{r['plain_ms']:.3f}, bound {bound_ms(*r['work'])[0]:.3f})")
     report["presel"] = {"classes": precs, "picture": ppic}
 
     # phase 3, K5: two 1080p pictures at R = 64 (config 3's shape)
@@ -585,6 +941,23 @@ def main(argv=None) -> int:
           f"{me['plain_ms']:.3f}, bound {bound_ms(*me['work'])[0]:.3f})",
           flush=True)
     report["me"] = me
+
+    # phase 3, K6 and K7: residuals of 1080p pictures at 8 and 10 bits
+    trecs = run_tr(torch, dev, {8: luma_frames(W, H, 1, 8, seed=71)[0],
+                                10: pic10}, reps=20, plain_reps=3)
+    print("phase 3: K6 fwd/inv_transform_batch and K7 quant/dequant_batch "
+          f"bit-exact on {len(TR_CLASSES)} classes of {W}x{H} residuals, "
+          "8 and 10 bits, QPs 22/37/51, both slice types; at 10 bits, QP "
+          "37:", flush=True)
+    def dev_str(v):
+        return "not measured" if v is None else f"{v:.4f}"
+    for r in trecs:
+        print(f"  class {r['w']:2d}x{r['h']:<2d} B={r['B']:6d}: " + ", ".join(
+            f"{n} {r['ms'][n]:.4f} ms (kernel alone "
+            f"{dev_str(r['device_ms'][n])}, plain {r['plain_ms'][n]:.3f}, "
+            f"bound {bound_ms(*r['work'][n])[0]:.4f})" for n in TR_KERNELS))
+    report["transforms"] = trecs
+    tr16 = next(r for r in trecs if (r["w"], r["h"]) == (16, 16))
 
     # phase 4: the main paths through the CLI
     from vvenc_tpu_torch.utils.devclock import DEV
@@ -618,10 +991,16 @@ def main(argv=None) -> int:
         "medium", ["--gop-size", "2", "--intra-period", "0", "--qpa", "1",
                    "--wpp", "--threads", "2", "--set", "me_mode=device"],
         ("frame_me",))
+    clips = {"config1": (clip1, 416, 240, 10, "faster", True),
+             "hd_faster": (clip_hd, 1920, 1080, 4, "faster", True),
+             "hd_medium": (clip_hd, 1920, 1080, 2, "medium", False)}
+    mesh_launches = mesh_phase(torch, dev, kernels, clips, pic10,
+                               report)
 
-    # phase 5: one line per kernel; launches from the main path that
-    # runs it at the timed shape (K1-K3 config 1, K4 the 1080p medium
-    # all-intra encode, K5 config 3)
+    # phase 5: one line per kernel entry; launches from the main path
+    # that runs it at the timed shape (K1-K3 config 1, K4 the 1080p
+    # medium all-intra encode, K5 config 3, K4's gathered entry the same
+    # encode with intra_presel.MESH set, K6 and K7 dryrun_multichip(4))
     entries = []
     for n, (src, replaces) in KERNELS.items():
         if n in PLAN_KERNELS:
@@ -636,6 +1015,15 @@ def main(argv=None) -> int:
             ms, plain_ms, bms, by, err = pms, sum(
                 r["plain_ms"] for r in precs), pbound, pby, 0.0
             nl = report["hd_medium"]["launches"][n]
+        elif n == "presel_costs_gathered":
+            ms, plain_ms, bms, by, err = gms, sum(
+                r["plain_ms"] for r in precs), gbound, gby, 0.0
+            nl = mesh_launches["encodes"]["hd_medium"][n]
+        elif n in TR_KERNELS:
+            # the 1080p 16x16 grid (B = 8,040) at 10 bits, QP 37
+            ms, plain_ms, err = tr16["ms"][n], tr16["plain_ms"][n], 0.0
+            bms, by = bound_ms(*tr16["work"][n])
+            nl = mesh_launches["dryrun"][n]
         else:
             ms, plain_ms, err = me["ms"], me["plain_ms"], me["max_abs_err"]
             bms, by = bound_ms(*me["work"])

@@ -106,7 +106,8 @@ def test_inter_and_device_modules_import_no_jax_and_no_vvenc_tpu():
     mods = ["ops.me", "ops.intra_presel", "ops.dmvr", "ops.bdof",
             "ops.affine_search", "codec.geo", "codec.affine", "codec.lmcs",
             "encoder.ifp", "encoder.lmcs_enc", "encoder.ratectrl",
-            "encoder.lookahead", "encoder.inter_search"]
+            "encoder.lookahead", "encoder.inter_search", "ops.transforms",
+            "parallel.mesh", "graft_entry"]
     code = ("import sys\n"
             + "".join(f"import vvenc_tpu_torch.{m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -117,3 +118,38 @@ def test_inter_and_device_modules_import_no_jax_and_no_vvenc_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_mesh_and_dryrun_default_to_cuda_and_raise_without_a_card():
+    """The mesh path's entry points run on the card unless asked for the
+    CPU: make_mesh(), make_mesh2d(), graft_entry.entry() and
+    dryrun_multichip() raise without one, and a position named "cuda"
+    does too."""
+    _no_card()
+    from vvenc_tpu_torch import graft_entry
+    from vvenc_tpu_torch.parallel import mesh as M
+    for call in (M.make_mesh, M.make_mesh2d, graft_entry.entry,
+                 lambda: graft_entry.dryrun_multichip(4),
+                 lambda: M.make_mesh(["cuda"] * 2)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert M.make_mesh(["cpu"] * 2).home == torch.device("cpu")
+
+
+def test_mesh_hooks_keep_the_encoder_on_its_device():
+    """A MESH of CPU positions does not take a "cuda" encode to the CPU:
+    the hooks check the mesh's device against the encoder's."""
+    from vvenc_tpu_torch.ops import intra_plan
+    from vvenc_tpu_torch.parallel import mesh as M
+    mesh = M.make_mesh(["cpu"] * 2)
+    M.check_mesh_device(mesh, "cpu")
+    with pytest.raises(ValueError, match="device"):
+        M.check_mesh_device(mesh, "cuda")
+    if not torch.cuda.is_available():
+        intra_plan.MESH = mesh
+        try:
+            with pytest.raises(RuntimeError, match="cuda"):
+                intra_plan.build_plans([np.zeros((64, 64), np.int32)], 10,
+                                       64, 8, 37, [10.0], [3.0])
+        finally:
+            intra_plan.MESH = None

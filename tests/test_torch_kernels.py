@@ -151,3 +151,124 @@ def test_frame_me_matches_plain(cuda, R):
     assert kernels.launches["frame_me"] == n + 1
     assert torch.equal(mk, mr)
     assert torch.equal(ck, cr)
+
+
+TR_SHAPES = [(4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (8, 4), (16, 8),
+             (32, 64), (4, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("w,h", TR_SHAPES)
+def test_transform_and_quant_kernels_match_plain(cuda, w, h, bd):
+    """K6 (forward and inverse DCT-2) and K7 (quant, dequant) bit-exact
+    against their plain versions on the card, every QP class of the
+    dequant (both shift branches) and both slice types."""
+    from vvenc_tpu_torch.ops import transforms as T
+    rng = np.random.RandomState(w * 100 + h + bd)
+    top = (1 << bd) - 1
+    resi = rng.randint(-top, top + 1, (43, h, w)).astype(np.int32)
+    resi[0], resi[1] = top, -top
+    resi = torch.from_numpy(resi).to(cuda)
+    n = dict(kernels.launches)
+    ck = T.fwd_transform_batch(resi, w, h, bd)
+    cr = T.fwd_transform_batch_ref(resi, w, h, bd)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cr)
+    rk = T.inv_transform_batch(ck, w, h, bd)
+    assert torch.equal(rk, T.inv_transform_batch_ref(ck, w, h, bd))
+    for qp in (0, 22, 37, 42, 51):
+        for intra in (True, False):
+            qk = T.quant_batch(ck, w, h, qp, bd, intra)
+            assert torch.equal(qk, T.quant_batch_ref(ck, w, h, qp, bd, intra))
+        qk[0, 0, 0], qk[1, 0, 0] = 40000, -40000     # the int16 clip
+        assert torch.equal(T.dequant_batch(qk, w, h, qp, bd),
+                           T.dequant_batch_ref(qk, w, h, qp, bd))
+    torch.cuda.synchronize()
+    for e, k in (("fwd_transform_batch", 1), ("inv_transform_batch", 1),
+                 ("quant_batch", 10), ("dequant_batch", 5)):
+        assert kernels.launches[e] == n[e] + k, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("w,h", MTT_SHAPES)
+def test_presel_costs_gathered_matches_plain(cuda, w, h, bd):
+    """K4's gathered entry (the reference's inputs) bit-exact against
+    presel_costs_ref and equal to the plane form, on every MTT class;
+    and on references wider than LPAD, cut as the reference cuts them."""
+    rng = np.random.RandomState(w * 10 + h + bd)
+    W, H, pad = 136, 72, S.FramePresel.PAD
+    plane = _plane(rng, W, H, bd, pad).to(cuda)
+    xs, ys, _, _ = S._class_grid(W, H, w, h, True)
+    xs_d = torch.from_numpy(xs).to(cuda)
+    ys_d = torch.from_numpy(ys).to(cuda)
+    inputs = S.plane_inputs(plane, pad, xs, ys, w, h)
+    n = kernels.launches["presel_costs_gathered"]
+    ck = S.presel_costs(*inputs, w, h, bd)
+    cr = S.presel_costs_ref(*inputs, w, h, bd)
+    cp = S.presel_costs_plane(plane, pad, xs_d, ys_d, w, h, bd)
+    torch.cuda.synchronize()
+    assert kernels.launches["presel_costs_gathered"] == n + 1
+    assert torch.equal(ck, cr) and torch.equal(ck, cp)
+    blocks, tops, lefts = inputs
+    L = _shape_tables(w, h, True, 0).LPAD + 5
+    wide_t = torch.from_numpy(rng.randint(0, 1 << bd, (len(blocks), L))
+                              .astype(np.int32)).to(cuda)
+    wide_l = torch.from_numpy(rng.randint(0, 1 << bd, (len(blocks), L))
+                              .astype(np.int32)).to(cuda)
+    assert torch.equal(S.presel_costs(blocks, wide_t, wide_l, w, h, bd),
+                       S.presel_costs_ref(blocks, wide_t, wide_l, w, h, bd))
+
+
+@pytest.mark.cuda
+def test_mesh_of_four_positions_on_one_card(cuda):
+    """Four positions on cuda:0, each on its own stream: the sharded
+    programs equal the unsharded kernels, for a batch that does not
+    divide and with the apron ppermute moving whole shards."""
+    from vvenc_tpu_torch.parallel import mesh as M
+    mesh = M.make_mesh2d([torch.device("cuda", 0)] * 4)
+    assert mesh.describe() == \
+        "4 positions (gops 2 x tiles 2) on 1 card (cuda:0)"
+    assert len({p.stream.cuda_stream for p in mesh.flat}) == 4
+    rng = np.random.RandomState(7)
+    w = h = 16
+    B = 19
+    src = torch.from_numpy(rng.randint(0, 1024, (B, h, w)).astype(
+        np.int32)).to(cuda)
+    tops, lefts = (torch.from_numpy(rng.randint(0, 1024, (B, 2 * w + 3))
+                                    .astype(np.int32)).to(cuda)
+                   for _ in range(2))
+    costs, total = M.sharded_presel_costs(mesh, src, tops, lefts, w=w, h=h)
+    ref = S.presel_costs(src, tops, lefts, w, h)
+    assert torch.equal(costs, ref)
+    assert int(total) == int(ref.min(dim=1).values.sum())
+    lm = torch.full((B,), 30.0, device=cuda)
+    m, c = M.sharded_plan_class(mesh, src, tops, lefts, lm, lm.sqrt(), w=w,
+                                h=h, qp=37)
+    mr, cr = P._plan_class_core(src, tops, lefts, lm, lm.sqrt(), w, h, 37)
+    assert torch.equal(m, mr) and torch.equal(c, cr)
+    for tl in (1, 2):
+        G, Tn, b = 2, 2 * tl, 3
+        n = G * Tn * b
+        s2 = src[:1].expand(n, h, w).contiguous() + torch.arange(
+            n, device=cuda, dtype=torch.int32)[:, None, None]
+        t2, l2 = tops[:1].expand(n, -1).contiguous(), \
+            lefts[:1].expand(n, -1).contiguous()
+
+        def grid(x):
+            return x.reshape((G, Tn, b) + tuple(x.shape[1:]))
+        step = M.sharded_encode_step2d(mesh, w=w, h=h, qp=40)
+        best, q, rec, per_gop, tot = step(grid(s2), grid(s2), grid(t2),
+                                          grid(l2))
+        _, _, r1, bits1, sse1 = M.search_step(s2, t2, l2, w=w, h=h, qp=40)
+        nbr = torch.roll(grid(r1)[..., -1], tl, dims=1).reshape(-1, h)
+        l3 = torch.cat([nbr[:, :1], nbr,
+                        nbr[:, -1:].expand(-1, l2.shape[1] - h - 1)], dim=1)
+        _, _, r2, bits2, sse2 = M.search_step(s2, t2, l3, w=w, h=h, qp=40)
+        better = sse2 + bits2.to(torch.int64) < sse1 + bits1.to(torch.int64)
+        assert torch.equal(rec, grid(torch.where(better[:, None, None], r2,
+                                                 r1)))
+        bits = torch.where(better, bits2, bits1)
+        assert int(tot) == int(bits.sum())
+        assert torch.equal(per_gop, grid(bits).sum(dim=(1, 2)))

@@ -38,6 +38,14 @@
 // (order-free, so exact).  The static per-mode tables are K1's
 // (ops/tables.device_tables), read through the read-only cache; all
 // angular samples are the same 4-tap gather, so modes do not diverge.
+//
+// A second entry, vt_presel_costs_gathered, takes the reference's own
+// inputs (blocks [B, h, w], tops [B, Lt], lefts [B, Ll] int32, as the
+// mesh path's sharded_presel_costs and the graft entry pass them) and
+// only stages them differently: the pool is [tops (nA) | ftop (nA) |
+// lefts (nL) | fleft (nL)] with nA = min(Lt, LPAD), nL = min(Ll, LPAD),
+// the reference's concatenated layout, so the rectangular-class misreads
+// and the clamp past the pool's end are the reference's for any width.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,6 +80,20 @@ struct Shape {
   int w, h, bit_depth, LR, TM, B0;
   int nA, nL, P;        // top / left segment lengths, pool length
   int per;              // ints of shared memory per candidate
+};
+
+// where a candidate's source block and references come from: the padded
+// plane at grid position (xs[c % nx], ys[c / nx]), or the gathered
+// arrays (row c of blocks / tops / lefts)
+struct Inputs {
+  const int16_t* plane;
+  int stride, pad, nx;
+  const int* xs;
+  const int* ys;
+  const int* blocks;
+  const int* tops;
+  const int* lefts;
+  int Lt, Ll;
 };
 
 // one planar (mode 0) or DC (mode 1) sample at (yy, xx) of a candidate
@@ -160,11 +182,9 @@ __device__ __forceinline__ void angular_tile(
   }
 }
 
-template <int T>
+template <int T, bool GATHERED>
 __global__ void __launch_bounds__(kMaxThreads) presel_costs_kernel(
-    const int16_t* __restrict__ plane, int stride, int pad,
-    const int* __restrict__ xs, int nx, const int* __restrict__ ys,
-    long long B, int G, int* __restrict__ out, Shape s,
+    const Inputs in, long long B, int G, int* __restrict__ out, Shape s,
     const int* __restrict__ rm_flat, const int* __restrict__ row_start,
     const int* __restrict__ filt, const int* __restrict__ mode_info,
     const int* __restrict__ pdpc_wl, const int* __restrict__ side_flat) {
@@ -175,25 +195,40 @@ __global__ void __launch_bounds__(kMaxThreads) presel_costs_kernel(
   const int G_live = (int)min((long long)G, B - c0);
 
   // stage the raw references, the source blocks and zero costs
+  const int16_t* plane = in.plane;
+  const int stride = in.stride, pad = in.pad, nx = in.nx;
   for (int k = threadIdx.x; k < G_live * s.nA; k += blockDim.x) {
     const int g = k / s.nA, j = k - g * s.nA;
     const long long c = c0 + g;
-    const int bx = __ldg(xs + c % nx), by = __ldg(ys + c / nx);
-    smem[g * per + j] = plane[(size_t)(by + pad - 1) * stride + bx + pad - 1 + j];
+    if constexpr (GATHERED) {
+      smem[g * per + j] = in.tops[c * in.Lt + j];
+    } else {
+      const int bx = __ldg(in.xs + c % nx), by = __ldg(in.ys + c / nx);
+      smem[g * per + j] =
+          plane[(size_t)(by + pad - 1) * stride + bx + pad - 1 + j];
+    }
   }
   for (int k = threadIdx.x; k < G_live * s.nL; k += blockDim.x) {
     const int g = k / s.nL, j = k - g * s.nL;
     const long long c = c0 + g;
-    const int bx = __ldg(xs + c % nx), by = __ldg(ys + c / nx);
-    smem[g * per + 2 * s.nA + j] =
-        plane[(size_t)(by + pad - 1 + j) * stride + bx + pad - 1];
+    if constexpr (GATHERED) {
+      smem[g * per + 2 * s.nA + j] = in.lefts[c * in.Ll + j];
+    } else {
+      const int bx = __ldg(in.xs + c % nx), by = __ldg(in.ys + c / nx);
+      smem[g * per + 2 * s.nA + j] =
+          plane[(size_t)(by + pad - 1 + j) * stride + bx + pad - 1];
+    }
   }
   for (int k = threadIdx.x; k < G_live * hw; k += blockDim.x) {
     const int g = k / hw, i = k - g * hw;
     const long long c = c0 + g;
-    const int bx = __ldg(xs + c % nx), by = __ldg(ys + c / nx);
-    smem[g * per + s.P + i] =
-        plane[(size_t)(by + pad + i / w) * stride + bx + pad + i % w];
+    if constexpr (GATHERED) {
+      smem[g * per + s.P + i] = in.blocks[c * hw + i];
+    } else {
+      const int bx = __ldg(in.xs + c % nx), by = __ldg(in.ys + c / nx);
+      smem[g * per + s.P + i] =
+          plane[(size_t)(by + pad + i / w) * stride + bx + pad + i % w];
+    }
   }
   for (int k = threadIdx.x; k < G_live * kModes; k += blockDim.x) {
     const int g = k / kModes;
@@ -296,6 +331,52 @@ extern "C" const char* vt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+namespace {
+
+// launches the kernel over B candidates of one (w, h) class whose pool
+// segments are nA / nL long
+template <bool GATHERED>
+int launch(const Inputs& in, long long B, void* out, int w, int h,
+           int bit_depth, int nA, int nL, const void* rm_flat,
+           const void* row_start, const void* filt, const void* mode_info,
+           const void* pdpc_wl, const void* side_flat, int LR, int TM, int B0,
+           void* stream) {
+  cudaGetLastError();  // clear a stale error so the return is this launch's
+  if (w < 4 || h < 4 || w > 64 || h > 64 || (w & (w - 1)) || (h & (h - 1)) ||
+      B <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int T = (w % 8 == 0 && h % 8 == 0) ? 8 : 4;
+  const int ntiles = (w / T) * (h / T);
+  const int G = ntiles >= 32 ? 1 : 32 / ntiles;  // G * ntiles >= 32
+  Shape s;
+  s.w = w;
+  s.h = h;
+  s.bit_depth = bit_depth;
+  s.LR = LR;
+  s.TM = TM;
+  s.B0 = B0;
+  s.nA = nA;
+  s.nL = nL;
+  s.P = 2 * s.nA + 2 * s.nL;
+  s.per = s.P + w * h + kModes + 1;
+  const unsigned grid = (unsigned)((B + G - 1) / G);
+  const size_t shm = (size_t)G * s.per * sizeof(int);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (T == 8)
+    presel_costs_kernel<8, GATHERED><<<grid, kMaxThreads, shm, st>>>(
+        in, B, G, (int*)out, s, (const int*)rm_flat, (const int*)row_start,
+        (const int*)filt, (const int*)mode_info, (const int*)pdpc_wl,
+        (const int*)side_flat);
+  else
+    presel_costs_kernel<4, GATHERED><<<grid, kMaxThreads, shm, st>>>(
+        in, B, G, (int*)out, s, (const int*)rm_flat, (const int*)row_start,
+        (const int*)filt, (const int*)mode_info, (const int*)pdpc_wl,
+        (const int*)side_flat);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // plane [rows, stride] int16 (the picture edge-padded by `pad`), xs [nx] /
 // ys [ny] int32 grid positions in picture coordinates, out [ny*nx, 67]
 // int32; the tables are ops/tables.device_tables(w, h).  Returns
@@ -306,40 +387,38 @@ extern "C" int vt_presel_costs(
     const void* rm_flat, const void* row_start, const void* filt,
     const void* mode_info, const void* pdpc_wl, const void* side_flat,
     int LR, int TM, int B0, void* stream) {
-  cudaGetLastError();  // clear a stale error so the return is this launch's
-  if (w < 4 || h < 4 || w > 64 || h > 64 || (w & (w - 1)) || (h & (h - 1)) ||
-      nx <= 0 || ny <= 0)
+  if (nx <= 0 || ny <= 0) return (int)cudaErrorInvalidValue;
+  Inputs in = {};
+  in.plane = (const int16_t*)plane;
+  in.stride = stride;
+  in.pad = pad;
+  in.nx = nx;
+  in.xs = (const int*)xs;
+  in.ys = (const int*)ys;
+  return launch<false>(in, (long long)nx * ny, out, w, h, bit_depth,
+                       2 * w + 3, 2 * h + 3, rm_flat, row_start, filt,
+                       mode_info, pdpc_wl, side_flat, LR, TM, B0, stream);
+}
+
+// blocks [B, h, w], tops [B, Lt] (Lt >= 2w+3), lefts [B, Ll] (Ll >= 2h+3)
+// int32, out [B, 67] int32; nA / nL = the pool's segment lengths
+// (min(Lt, LPAD), min(Ll, LPAD)).  Returns cudaGetLastError() after the
+// launch on `stream`.
+extern "C" int vt_presel_costs_gathered(
+    const void* blocks, const void* tops, int Lt, const void* lefts, int Ll,
+    long long B, void* out, int w, int h, int bit_depth, int nA, int nL,
+    const void* rm_flat, const void* row_start, const void* filt,
+    const void* mode_info, const void* pdpc_wl, const void* side_flat,
+    int LR, int TM, int B0, void* stream) {
+  if (nA < 2 * w + 3 || nA > Lt || nL < 2 * h + 3 || nL > Ll)
     return (int)cudaErrorInvalidValue;
-  const int T = (w % 8 == 0 && h % 8 == 0) ? 8 : 4;
-  const int ntiles = (w / T) * (h / T);
-  const int G = ntiles >= 32 ? 1 : 32 / ntiles;  // G * ntiles >= 32
-  const int threads = kMaxThreads;
-  Shape s;
-  s.w = w;
-  s.h = h;
-  s.bit_depth = bit_depth;
-  s.LR = LR;
-  s.TM = TM;
-  s.B0 = B0;
-  s.nA = 2 * w + 3;
-  s.nL = 2 * h + 3;
-  s.P = 2 * s.nA + 2 * s.nL;
-  s.per = s.P + w * h + kModes + 1;
-  const long long B = (long long)nx * ny;
-  const unsigned grid = (unsigned)((B + G - 1) / G);
-  const size_t shm = (size_t)G * s.per * sizeof(int);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (T == 8)
-    presel_costs_kernel<8><<<grid, threads, shm, st>>>(
-        (const int16_t*)plane, stride, pad, (const int*)xs, nx,
-        (const int*)ys, B, G, (int*)out, s, (const int*)rm_flat,
-        (const int*)row_start, (const int*)filt, (const int*)mode_info,
-        (const int*)pdpc_wl, (const int*)side_flat);
-  else
-    presel_costs_kernel<4><<<grid, threads, shm, st>>>(
-        (const int16_t*)plane, stride, pad, (const int*)xs, nx,
-        (const int*)ys, B, G, (int*)out, s, (const int*)rm_flat,
-        (const int*)row_start, (const int*)filt, (const int*)mode_info,
-        (const int*)pdpc_wl, (const int*)side_flat);
-  return (int)cudaGetLastError();
+  Inputs in = {};
+  in.blocks = (const int*)blocks;
+  in.tops = (const int*)tops;
+  in.lefts = (const int*)lefts;
+  in.Lt = Lt;
+  in.Ll = Ll;
+  return launch<true>(in, B, out, w, h, bit_depth, nA, nL, rm_flat,
+                      row_start, filt, mode_info, pdpc_wl, side_flat, LR, TM,
+                      B0, stream);
 }

@@ -42,9 +42,9 @@ from . import kernels
 from .intra_presel import (NUM_MODES, _class_grid, predict_all_modes,
                            satd_batch)
 from .tables import device_tables
-from .transforms import (COEFF_MAX, COEFF_MIN, DCT2, DST7, QUANT_SCALES,
-                         INV_QUANT_SCALES, needs_sqrt2, transform_shift,
-                         tr_matrix)
+from .transforms import (DCT2, DST7, _dequant_params, _fwd_tr_ref,
+                         _inv_tr_ref, _quant_params, dequant_batch_ref,
+                         quant_batch_ref)
 
 # rate-proxy coefficients (frac bits), env-overridable for calibration
 # sweeps (the same variables as the JAX package)
@@ -73,56 +73,15 @@ def _trial_params(w, h, qp, bit_depth, implicit_mts):
     _plan_class_core derives them)."""
     trh = DST7 if (implicit_mts and 4 <= w <= 16) else DCT2
     trv = DST7 if (implicit_mts and 4 <= h <= 16) else DCT2
-    sqrt2 = needs_sqrt2(w, h)
-    tshift = transform_shift(w, h, bit_depth) + (-1 if sqrt2 else 0)
-    qbits = 14 + qp // 6 + tshift
+    qscale, qadd, qbits = _quant_params(w, h, qp, bit_depth, True)
+    dscale, dshift = _dequant_params(w, h, qp, bit_depth)
     return dict(
         trh=trh, trv=trv,
         shift1=(w.bit_length() - 1) + bit_depth + 6 - 15,
         shift2=(h.bit_length() - 1) + 6,
         ishift2=20 - bit_depth,
-        qbits=qbits, qscale=int(QUANT_SCALES[1 if sqrt2 else 0][qp % 6]),
-        qadd=171 << (qbits - 9), dshift=6 - (tshift + qp // 6),
-        dscale=int(INV_QUANT_SCALES[1 if sqrt2 else 0][qp % 6]),
+        qbits=qbits, qscale=qscale, qadd=qadd, dshift=dshift, dscale=dscale,
         maxval=(1 << bit_depth) - 1)
-
-
-def _clip_coeff(x):
-    return torch.clamp(x, COEFF_MIN, COEFF_MAX)
-
-
-def _fwd_tr_ref(resi, w, h, trh, trv, bit_depth):
-    """Forward transform with per-axis type (DCT2/DST7) [B, h, w], int32;
-    products as multiply-and-sum over the contraction index."""
-    dev = resi.device
-    shift1 = (w.bit_length() - 1) + bit_depth + 6 - 15
-    shift2 = (h.bit_length() - 1) + 6
-    tw = torch.from_numpy(tr_matrix(w, trh).astype(np.int32)).to(dev)
-    th = torch.from_numpy(tr_matrix(h, trv).astype(np.int32)).to(dev)
-    # tmp[b, y, u] = sum_x resi[b, y, x] * tw[u, x]
-    tmp = sum(resi[:, :, x, None] * tw[None, None, :, x] for x in range(w))
-    tmp = _clip_coeff((tmp + (1 << (shift1 - 1))) >> shift1)
-    # out[b, v, u] = sum_y th[v, y] * tmp[b, y, u]
-    out = sum(th[None, :, y, None] * tmp[:, None, y, :] for y in range(h))
-    out = _clip_coeff((out + (1 << (shift2 - 1))) >> shift2)
-    if w > 32 or h > 32:
-        yy = torch.arange(h, device=dev)[:, None]
-        xx = torch.arange(w, device=dev)[None, :]
-        out = torch.where((xx < 32) & (yy < 32), out, 0)
-    return out
-
-
-def _inv_tr_ref(coeff, w, h, trh, trv, bit_depth):
-    dev = coeff.device
-    shift1, shift2 = 7, 20 - bit_depth
-    tw = torch.from_numpy(tr_matrix(w, trh).astype(np.int32)).to(dev)
-    th = torch.from_numpy(tr_matrix(h, trv).astype(np.int32)).to(dev)
-    # tmp[b, y, u] = sum_v th[v, y] * coeff[b, v, u]
-    tmp = sum(th[None, v, :, None] * coeff[:, None, v, :] for v in range(h))
-    tmp = _clip_coeff((tmp + (1 << (shift1 - 1))) >> shift1)
-    # out[b, y, x] = sum_u tmp[b, y, u] * tw[u, x]
-    out = sum(tmp[:, :, u, None] * tw[None, None, u, :] for u in range(w))
-    return _clip_coeff((out + (1 << (shift2 - 1))) >> shift2)
 
 
 def plan_trial_ref(src_blocks, preds, satd, lmbda, lmbda_sad, w: int,
@@ -144,15 +103,9 @@ def plan_trial_ref(src_blocks, preds, satd, lmbda, lmbda_sad, w: int,
         pred = preds.gather(1, sel)[:, 0].to(torch.int32)  # [B, h, w]
         resi = src_blocks - pred
         coeff = _fwd_tr_ref(resi, w, h, p["trh"], p["trv"], bit_depth)
-        mag = (coeff.abs() * p["qscale"] + p["qadd"]) >> p["qbits"]
-        q = torch.sign(coeff) * mag
-        qc = torch.clamp(q, -(1 << 15), (1 << 15) - 1)
-        dshift = p["dshift"]
-        if dshift > 0:
-            d = (qc * p["dscale"] + (1 << (dshift - 1))) >> dshift
-        else:
-            d = (qc * p["dscale"]) << (-dshift)
-        d = _clip_coeff(d)
+        q = quant_batch_ref(coeff, w, h, qp, bit_depth)
+        mag = q.abs()
+        d = dequant_batch_ref(q, w, h, qp, bit_depth)
         r = _inv_tr_ref(d, w, h, p["trh"], p["trv"], bit_depth)
         rec = torch.clamp(pred + r, 0, p["maxval"])
         err = (src_blocks - rec).to(torch.float32)
@@ -266,20 +219,29 @@ def _class_inputs(planes, s: int, W: int, H: int):
 
 def _plan_batch_core(planes, lmbda, lmbda_sad, sizes, W: int, H: int,
                      qp: int, bit_depth: int = 10, implicit_mts: bool = True,
-                     k: int = 2):
-    """All size classes of a batch of frames, on the planes' device.
+                     k: int = 2, mesh=None):
+    """All size classes of a batch of frames, on the planes' device, or
+    with a mesh (the MESH hook) each class sharded over it by
+    parallel.mesh.sharded_plan_class.
 
     planes: [F, H+2*PAD, W+2*PAD] int16 edge-padded source planes (the
     only h2d transfer).  Returns (modes [N, k] int32, costs [N, k]
-    float32) flat over (class, frame, block) in `sizes` order."""
+    float32) flat over (class, frame, block) in `sizes` order, on the
+    planes' device or the mesh's home device."""
     out_modes, out_costs = [], []
     for s in sizes:
         blocks, tops, lefts = _class_inputs(planes, s, W, H)
         n1 = (W // s) * (H // s)
-        m, c = _plan_class_core(blocks, tops, lefts,
-                                lmbda.repeat_interleave(n1),
-                                lmbda_sad.repeat_interleave(n1), s, s, qp,
-                                bit_depth, implicit_mts, k)
+        args = (blocks, tops, lefts, lmbda.repeat_interleave(n1),
+                lmbda_sad.repeat_interleave(n1))
+        if mesh is None:
+            m, c = _plan_class_core(*args, s, s, qp, bit_depth,
+                                    implicit_mts, k)
+        else:
+            from ..parallel.mesh import sharded_plan_class
+            m, c = sharded_plan_class(mesh, *args, w=s, h=s, qp=qp,
+                                      bit_depth=bit_depth,
+                                      implicit_mts=implicit_mts, k=k)
         out_modes.append(m)
         out_costs.append(c)
     return torch.cat(out_modes), torch.cat(out_costs)
@@ -375,21 +337,33 @@ class _PlanView(FramePlan):
         self.tables = tables
 
 
+# optional device mesh (parallel.mesh.Mesh): when set, build_plans runs
+# every class through parallel.mesh.sharded_plan_class, gathering the
+# candidates on the encoder's device and handing each position its shard;
+# the plans are the same for any mesh shape (chip-count invariance).  Read
+# at call time, from the plan-prefill thread too.
+MESH = None
+
+
 def build_plans(srcs, bit_depth: int, ctu_size: int, min_qt: int, qp: int,
                 lmbdas, lmbda_sads, implicit_mts: bool = True,
                 k: int | None = None, device="cuda"):
     """Device RD plans for a BATCH of frames.
 
     All frames' candidate blocks of a size class are stacked into one
-    batch per kernel launch, and the (tiny) mode/cost results come back
-    in one fetch per batch.  Frames may have different lambdas (per-block
-    inputs).  device: "cuda" (the kernels) or "cpu" (their plain
-    versions); "cuda" without a card raises.
+    batch per kernel launch (per position with MESH set), and the (tiny)
+    mode/cost results come back in one fetch per batch.  Frames may have
+    different lambdas (per-block inputs).  device: "cuda" (the kernels)
+    or "cpu" (their plain versions); "cuda" without a card raises.
 
     Returns [FramePlan] per frame."""
     from ..device import resolve_device
     from ..utils.devclock import DEV
     dev = resolve_device(device)
+    mesh = MESH
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh_device
+        check_mesh_device(mesh, dev)
     if k is None:
         k = PLAN_K
     F = len(srcs)
@@ -402,8 +376,9 @@ def build_plans(srcs, bit_depth: int, ctu_size: int, min_qt: int, qp: int,
             torch.from_numpy(planes).to(dev),
             torch.tensor(lmbdas, dtype=torch.float32, device=dev),
             torch.tensor(lmbda_sads, dtype=torch.float32, device=dev),
-            sizes, W, H, qp, bit_depth, implicit_mts, k)
-        # the .cpu() fetches synchronise: the section covers the kernels
+            sizes, W, H, qp, bit_depth, implicit_mts, k, mesh)
+        # the .cpu() fetches synchronise (with a mesh, the collection
+        # waits on every position): the section covers the kernels
         modes = modes_d.cpu().numpy()
         costs = costs_d.cpu().numpy()
     return _plan_tables(modes, costs, sizes, W, H, lmbdas)

@@ -12,6 +12,8 @@ exact), predict every intra mode and cost it against the source block.
   presel_costs_plane -> K4, csrc/presel_costs.cu: K1 and K2 fused for
                         the frame-level preselection (FramePresel), read
                         straight from the padded source plane
+  presel_costs       -> K4's second entry: the same on the reference's
+                        gathered inputs (the mesh path, graft_entry)
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version (`*_ref`, a transcription of the JAX reference) for CPU
@@ -362,6 +364,56 @@ def plane_inputs(plane: torch.Tensor, pad: int, xs, ys, w: int, h: int):
     return blocks, tops, lefts
 
 
+_K4G_ARGS = [_P, _P, _I, _P, _I, ctypes.c_longlong, _P, _I, _I, _I, _I, _I,
+             _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+
+
+def presel_costs(src_blocks: torch.Tensor, tops: torch.Tensor,
+                 lefts: torch.Tensor, w: int, h: int,
+                 bit_depth: int = 10) -> torch.Tensor:
+    """The reference's presel_costs: SATD cost of all 67 intra modes for
+    a batch of blocks, src_blocks [B, h, w], tops [B, >=2w+3], lefts
+    [B, >=2h+3], all int32 -> [B, 67] int32.  K4 (its gathered entry) on
+    a CUDA device, presel_costs_ref on the CPU."""
+    if all(x.device.type == "cpu" for x in (src_blocks, tops, lefts)):
+        return presel_costs_ref(src_blocks, tops, lefts, w, h, bit_depth)
+    dev = src_blocks.device
+    if dev.type != "cuda":
+        raise ValueError(f"presel_costs: no kernel for {dev}")
+    kernels.require(src_blocks, "src_blocks", torch.int32, 3, dev)
+    kernels.require(tops, "tops", torch.int32, 2, dev)
+    kernels.require(lefts, "lefts", torch.int32, 2, dev)
+    if not (w in (4, 8, 16, 32, 64) and h in (4, 8, 16, 32, 64)):
+        raise ValueError(f"block {w}x{h}: sides must be 4..64")
+    B = src_blocks.shape[0]
+    if tuple(src_blocks.shape[1:]) != (h, w) or tops.shape[0] != B or \
+            lefts.shape[0] != B or tops.shape[1] < 2 * w + 3 or \
+            lefts.shape[1] < 2 * h + 3:
+        raise ValueError(f"src {tuple(src_blocks.shape)} / tops "
+                         f"{tuple(tops.shape)} / lefts {tuple(lefts.shape)}"
+                         f": need [B, {h}, {w}], [B, >={2 * w + 3}], "
+                         f"[B, >={2 * h + 3}]")
+    out = torch.empty((B, NUM_MODES), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    t = device_tables(w, h, dev)
+    # the pool's segments: the references cut to LPAD, as the reference
+    # cuts them (predict_all_modes_ref)
+    nA, nL = min(tops.shape[1], t["LPAD"]), min(lefts.shape[1], t["LPAD"])
+    fn = kernels.function("presel_costs", "vt_presel_costs_gathered",
+                          _K4G_ARGS)
+    err = fn(src_blocks.data_ptr(), tops.data_ptr(), tops.shape[1],
+             lefts.data_ptr(), lefts.shape[1], B, out.data_ptr(), w, h,
+             bit_depth, nA, nL, t["rm_flat"].data_ptr(),
+             t["row_start"].data_ptr(), t["filt"].data_ptr(),
+             t["mode_info"].data_ptr(), t["pdpc_wl"].data_ptr(),
+             t["side_flat"].data_ptr(), t["LR"], t["TM"], t["B0"],
+             kernels.stream_ptr(out))
+    kernels.check("presel_costs", err)
+    kernels.count("presel_costs_gathered")
+    return out
+
+
 _K4_ARGS = [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 
@@ -417,11 +469,20 @@ def presel_costs_plane(plane: torch.Tensor, pad: int, xs: torch.Tensor,
     return out
 
 
+# optional device mesh (parallel.mesh.Mesh): when set, FramePresel runs
+# every class through parallel.mesh.sharded_presel_costs on the
+# reference's gathered inputs; the tables are the same for any mesh shape
+# (chip-count invariance).  Read at call time.
+MESH = None
+
+
 class FramePresel:
     """Per-frame device-computed intra preselection cost tables.
 
     The source plane goes to the device once; every class is launched
-    into one device buffer before the one fetch.
+    into one device buffer before the one fetch (with MESH set, each
+    class is gathered, sharded over the mesh and collected into that
+    buffer).
 
     lookup(x, y, w, h) -> int32 costs[67] or None (position not in the
     class grid — caller falls back to the exact host sweep)."""
@@ -456,12 +517,22 @@ class FramePresel:
         total = sum(len(g[1]) * len(g[2]) for g in grids)
         costs_d = torch.empty((total, NUM_MODES), dtype=torch.int32,
                               device=dev)
+        mesh = MESH
+        if mesh is not None:
+            from ..parallel.mesh import check_mesh_device, sharded_presel_costs
+            check_mesh_device(mesh, dev)
         off = 0
         for (w, h), xs, ys, _ax, _ay in grids:
             n = len(xs) * len(ys)
-            presel_costs_plane(plane, pad, torch.from_numpy(xs).to(dev),
-                               torch.from_numpy(ys).to(dev), w, h,
-                               bit_depth, out=costs_d[off:off + n])
+            if mesh is not None:
+                costs, _tot = sharded_presel_costs(
+                    mesh, *plane_inputs(plane, pad, xs, ys, w, h), w=w, h=h,
+                    bit_depth=bit_depth)
+                costs_d[off:off + n].copy_(costs)
+            else:
+                presel_costs_plane(plane, pad, torch.from_numpy(xs).to(dev),
+                                   torch.from_numpy(ys).to(dev), w, h,
+                                   bit_depth, out=costs_d[off:off + n])
             off += n
         with PROF.section("device.frame_presel.fetch"):
             # one fetch, which waits for every class's launch; on the card

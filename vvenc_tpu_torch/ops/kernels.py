@@ -11,10 +11,11 @@ product and sum on its own, as the reference's XLA program does; a
 contracted FMA would move near-tie decisions (the native host build uses
 -ffp-contract=off for the same reason).
 
-launches[name] counts the launches of each kernel; each wrapper adds one
-(count(name)) where it launches its kernel, and nowhere else.  The
-encoder launches from several threads (frame-parallel pictures, WPP), so
-the count takes a lock.
+launches[entry] counts the launches of each kernel entry (a source may
+hold several: ENTRIES maps each entry to its source); each wrapper adds
+one (count(entry)) where it launches its kernel, and nowhere else.  The
+encoder launches from several threads (frame-parallel pictures, WPP,
+mesh positions), so the count takes a lock.
 """
 
 from __future__ import annotations
@@ -31,13 +32,25 @@ import threading
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build" / "kernels"
-SOURCES = ("intra_pred_all", "satd_modes", "plan_trial", "presel_costs",
-           "frame_me")
+# launch-counted kernel entries -> the csrc/<source>.cu that holds them
+ENTRIES = {
+    "intra_pred_all": "intra_pred_all",
+    "satd_modes": "satd_modes",
+    "plan_trial": "plan_trial",
+    "presel_costs": "presel_costs",            # plane form (FramePresel)
+    "presel_costs_gathered": "presel_costs",   # the reference's inputs
+    "frame_me": "frame_me",
+    "fwd_transform_batch": "transform_batch",
+    "inv_transform_batch": "transform_batch",
+    "quant_batch": "quant_batch",
+    "dequant_batch": "quant_batch",
+}
+SOURCES = tuple(dict.fromkeys(ENTRIES.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-launches = dict.fromkeys(SOURCES, 0)
+launches = dict.fromkeys(ENTRIES, 0)
 _LIBS: dict = {}
 _LOCK = threading.Lock()
 
@@ -48,11 +61,11 @@ def reset_launches() -> None:
             launches[k] = 0
 
 
-def count(name: str) -> None:
-    """One launch of kernel `name` (called by its wrapper after the
-    launch)."""
+def count(entry: str) -> None:
+    """One launch of kernel entry `entry` (called by its wrapper after
+    the launch)."""
     with _LOCK:
-        launches[name] += 1
+        launches[entry] += 1
 
 
 def _nvcc() -> str:
@@ -103,8 +116,8 @@ def build(names=SOURCES) -> dict:
 
 
 def function(name: str, symbol: str, argtypes):
-    """ctypes function `symbol` of kernel library `name` (built and
-    loaded on first use); returns cudaError_t as an int."""
+    """ctypes function `symbol` of kernel library `name` (a source; built
+    and loaded on first use); returns cudaError_t as an int."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -119,7 +132,8 @@ def function(name: str, symbol: str, argtypes):
 
 
 def check(name: str, err: int) -> None:
-    """Raise if a launch was refused (cudaGetLastError() != 0)."""
+    """Raise if a launch from library `name` (a source) was refused
+    (cudaGetLastError() != 0)."""
     if err:
         msg = _LIBS[name].vt_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name}: error {err} ({msg})")

@@ -56,6 +56,7 @@ def _device_tables(device: str, w: int, h: int) -> dict:
                 continue
             m = np.ascontiguousarray(tr_matrix(n, tt), np.int32)
             out["tr"][(n, tt)] = torch.from_numpy(m).to(dev)
+    out["trT"] = {k: v.t().contiguous() for k, v in out["tr"].items()}
     out["mode_bits"] = torch.from_numpy(_MODE_BITS.copy()).to(dev)
     return out
 
@@ -64,5 +65,6 @@ def device_tables(w: int, h: int, device) -> dict:
     """The kernels' tables for block size (w, h) as tensors on `device`:
     K1's angular tables (rm_flat, row_start, filt, mode_info, pdpc_wl,
     side_flat and the ints LPAD, LR, TM, B0), the transform matrices
-    tr[(n, type)] for n in {w, h}, and mode_bits."""
+    tr[(n, type)] for n in {w, h} and their transposes trT[(n, type)],
+    and mode_bits."""
     return _device_tables(str(torch.device(device)), int(w), int(h))

@@ -16,13 +16,27 @@ forward, :608-609 inverse; CommonLib/Quant.cpp:735 quant, :520 dequant):
   dequant:  d = clip16(((q * invScale[qp%6] << qp//6) + rnd) >> (6 - transformShift))
 
 Blocks with odd log2(W*H) use the sqrt(2)-compensated scale rows.
+
+The batched half at the end ([B, h, w] int32 on a torch device) is the
+device side of the mesh path's partition-level trial (parallel/mesh.py
+search_step):
+
+  fwd_transform_batch / inv_transform_batch -> K6, csrc/transform_batch.cu
+  quant_batch / dequant_batch               -> K7, csrc/quant_batch.cu
+
+Each wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
+PyTorch version (`*_ref`) for a CPU tensor.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
+import torch
+
+from . import kernels
 
 # 63 tuned base values of the DCT-2 family (H.266 8.7.4.1 tables): group g
 # holds the odd-row defining values of the 2^(g+1)-point matrix.
@@ -479,3 +493,211 @@ def _dequant_dq_py(qcoeff: np.ndarray, qp: int,
             out[pos] = (q_idx * scale + add) >> rs
         state = _next_state(state, level)
     return np.clip(out, COEFF_MIN, COEFF_MAX).astype(np.int32).reshape(h, w)
+
+
+# ---------------------------------------------------------------------------
+# batched path: [B, h, w] int32 on a torch device (K6, K7)
+# ---------------------------------------------------------------------------
+
+def _clip_coeff(x):
+    return torch.clamp(x, COEFF_MIN, COEFF_MAX)
+
+
+def _fwd_tr_ref(resi, w, h, trh, trv, bit_depth):
+    """Forward transform with per-axis type (DCT2/DST7) [B, h, w], int32;
+    products as multiply-and-sum over the contraction index."""
+    dev = resi.device
+    shift1 = (w.bit_length() - 1) + bit_depth + 6 - 15
+    shift2 = (h.bit_length() - 1) + 6
+    tw = torch.from_numpy(tr_matrix(w, trh).astype(np.int32)).to(dev)
+    th = torch.from_numpy(tr_matrix(h, trv).astype(np.int32)).to(dev)
+    # tmp[b, y, u] = sum_x resi[b, y, x] * tw[u, x]
+    tmp = sum(resi[:, :, x, None] * tw[None, None, :, x] for x in range(w))
+    tmp = _clip_coeff((tmp + (1 << (shift1 - 1))) >> shift1)
+    # out[b, v, u] = sum_y th[v, y] * tmp[b, y, u]
+    out = sum(th[None, :, y, None] * tmp[:, None, y, :] for y in range(h))
+    out = _clip_coeff((out + (1 << (shift2 - 1))) >> shift2)
+    if w > 32 or h > 32:
+        yy = torch.arange(h, device=dev)[:, None]
+        xx = torch.arange(w, device=dev)[None, :]
+        out = torch.where((xx < 32) & (yy < 32), out, 0)
+    return out
+
+
+def _inv_tr_ref(coeff, w, h, trh, trv, bit_depth):
+    dev = coeff.device
+    shift1, shift2 = 7, 20 - bit_depth
+    tw = torch.from_numpy(tr_matrix(w, trh).astype(np.int32)).to(dev)
+    th = torch.from_numpy(tr_matrix(h, trv).astype(np.int32)).to(dev)
+    # tmp[b, y, u] = sum_v th[v, y] * coeff[b, v, u]
+    tmp = sum(th[None, v, :, None] * coeff[:, None, v, :] for v in range(h))
+    tmp = _clip_coeff((tmp + (1 << (shift1 - 1))) >> shift1)
+    # out[b, y, x] = sum_u tmp[b, y, u] * tw[u, x]
+    out = sum(tmp[:, :, u, None] * tw[None, None, u, :] for u in range(w))
+    return _clip_coeff((out + (1 << (shift2 - 1))) >> shift2)
+
+
+def fwd_transform_batch_ref(resi: torch.Tensor, w: int, h: int,
+                            bit_depth: int = 10) -> torch.Tensor:
+    """Plain PyTorch version of fwd_transform_batch."""
+    return _fwd_tr_ref(resi, w, h, DCT2, DCT2, bit_depth)
+
+
+def inv_transform_batch_ref(coeff: torch.Tensor, w: int, h: int,
+                            bit_depth: int = 10) -> torch.Tensor:
+    """Plain PyTorch version of inv_transform_batch."""
+    return _inv_tr_ref(coeff, w, h, DCT2, DCT2, bit_depth)
+
+
+def _quant_shift(w: int, h: int, bit_depth: int):
+    """(sqrt2 row, transform shift with its sqrt(2) adjustment)."""
+    sqrt2 = needs_sqrt2(w, h)
+    return int(sqrt2), transform_shift(w, h, bit_depth) - int(sqrt2)
+
+
+def _quant_params(w, h, qp, bit_depth, is_intra_slice):
+    """(scale, add, qbits) of quant_batch."""
+    row, tshift = _quant_shift(w, h, bit_depth)
+    qbits = 14 + qp // 6 + tshift
+    return (int(QUANT_SCALES[row][qp % 6]),
+            (171 if is_intra_slice else 85) << (qbits - 9), qbits)
+
+
+def _dequant_params(w, h, qp, bit_depth):
+    """(scale, right shift) of dequant_batch."""
+    row, tshift = _quant_shift(w, h, bit_depth)
+    return int(INV_QUANT_SCALES[row][qp % 6]), 6 - (tshift + qp // 6)
+
+
+def quant_batch_ref(coeff: torch.Tensor, w: int, h: int, qp: int,
+                    bit_depth: int = 10,
+                    is_intra_slice: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of quant_batch (int32, no clip of the
+    levels, as the reference)."""
+    scale, add, qbits = _quant_params(w, h, qp, bit_depth, is_intra_slice)
+    return torch.sign(coeff) * ((coeff.abs() * scale + add) >> qbits)
+
+
+def dequant_batch_ref(qcoeff: torch.Tensor, w: int, h: int, qp: int,
+                      bit_depth: int = 10) -> torch.Tensor:
+    """Plain PyTorch version of dequant_batch."""
+    scale, rs = _dequant_params(w, h, qp, bit_depth)
+    q = torch.clamp(qcoeff, -(1 << 15), (1 << 15) - 1)
+    if rs > 0:
+        d = (q * scale + (1 << (rs - 1))) >> rs
+    else:
+        d = (q * scale) << (-rs)
+    return _clip_coeff(d)
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _require_blocks(x: torch.Tensor, w: int, h: int, name: str):
+    """x's device after checking that it is a CUDA [B, h, w] int32
+    contiguous tensor and that (w, h) is a DCT-2 size the kernels take."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {dev}")
+    kernels.require(x, name, torch.int32, 3, dev)
+    if tuple(x.shape[1:]) != (h, w):
+        raise ValueError(f"{name}: {tuple(x.shape)} is not [B, {h}, {w}]")
+    if not (w in (4, 8, 16, 32, 64) and h in (4, 8, 16, 32, 64)):
+        raise ValueError(f"{name}: block {w}x{h}: sides must be 4..64")
+    return dev
+
+
+def fwd_transform_batch(resi: torch.Tensor, w: int, h: int,
+                        bit_depth: int = 10) -> torch.Tensor:
+    """Forward DCT-2 of a batch of blocks [B, h, w] int32 -> [B, h, w]
+    int32: rounding shift and clip after each stage, 64-point zero-out.
+    K6 on a CUDA device, the plain version on the CPU."""
+    if resi.device.type == "cpu":
+        return fwd_transform_batch_ref(resi, w, h, bit_depth)
+    dev = _require_blocks(resi, w, h, "fwd_transform_batch")
+    shift1 = (w.bit_length() - 1) + bit_depth + 6 - MAX_LOG2_TR_DYN_RANGE
+    shift2 = (h.bit_length() - 1) + 6
+    if shift1 < 1:
+        raise ValueError(f"fwd_transform_batch: bit depth {bit_depth} "
+                         f"gives a first-stage shift of {shift1}")
+    out = torch.empty_like(resi)
+    if resi.shape[0] == 0:
+        return out
+    from .tables import device_tables
+    t = device_tables(w, h, dev)
+    twT, th = t["trT"][(w, DCT2)], t["tr"][(h, DCT2)]
+    fn = kernels.function("transform_batch", "vt_fwd_transform_batch",
+                          [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P])
+    err = fn(resi.data_ptr(), out.data_ptr(), resi.shape[0], w, h, shift1,
+             shift2, twT.data_ptr(), th.data_ptr(), kernels.stream_ptr(out))
+    kernels.check("transform_batch", err)
+    kernels.count("fwd_transform_batch")
+    return out
+
+
+def inv_transform_batch(coeff: torch.Tensor, w: int, h: int,
+                        bit_depth: int = 10) -> torch.Tensor:
+    """Inverse DCT-2 of a batch of blocks [B, h, w] int32 -> [B, h, w]
+    int32.  K6 on a CUDA device, the plain version on the CPU."""
+    if coeff.device.type == "cpu":
+        return inv_transform_batch_ref(coeff, w, h, bit_depth)
+    dev = _require_blocks(coeff, w, h, "inv_transform_batch")
+    shift2 = 20 - bit_depth
+    if shift2 < 1:
+        raise ValueError(f"inv_transform_batch: bit depth {bit_depth}")
+    out = torch.empty_like(coeff)
+    if coeff.shape[0] == 0:
+        return out
+    from .tables import device_tables
+    t = device_tables(w, h, dev)
+    tw, th = t["tr"][(w, DCT2)], t["tr"][(h, DCT2)]
+    fn = kernels.function("transform_batch", "vt_inv_transform_batch",
+                          [_P, _P, _L, _I, _I, _I, _P, _P, _P])
+    err = fn(coeff.data_ptr(), out.data_ptr(), coeff.shape[0], w, h, shift2,
+             th.data_ptr(), tw.data_ptr(), kernels.stream_ptr(out))
+    kernels.check("transform_batch", err)
+    kernels.count("inv_transform_batch")
+    return out
+
+
+def quant_batch(coeff: torch.Tensor, w: int, h: int, qp: int,
+                bit_depth: int = 10,
+                is_intra_slice: bool = True) -> torch.Tensor:
+    """Scalar quantisation of a batch [B, h, w] int32 -> levels [B, h, w]
+    int32 (deadzone 171/512 on intra slices, 85/512 otherwise).  K7 on a
+    CUDA device, the plain version on the CPU."""
+    if coeff.device.type == "cpu":
+        return quant_batch_ref(coeff, w, h, qp, bit_depth, is_intra_slice)
+    _require_blocks(coeff, w, h, "quant_batch")
+    scale, add, qbits = _quant_params(w, h, qp, bit_depth, is_intra_slice)
+    out = torch.empty_like(coeff)
+    if coeff.numel() == 0:
+        return out
+    fn = kernels.function("quant_batch", "vt_quant_batch",
+                          [_P, _P, _L, _I, _I, _I, _P])
+    err = fn(coeff.data_ptr(), out.data_ptr(), coeff.numel(), scale, add,
+             qbits, kernels.stream_ptr(out))
+    kernels.check("quant_batch", err)
+    kernels.count("quant_batch")
+    return out
+
+
+def dequant_batch(qcoeff: torch.Tensor, w: int, h: int, qp: int,
+                  bit_depth: int = 10) -> torch.Tensor:
+    """Scalar dequantisation of a batch of levels [B, h, w] int32 ->
+    [B, h, w] int32.  K7 on a CUDA device, the plain version on the
+    CPU."""
+    if qcoeff.device.type == "cpu":
+        return dequant_batch_ref(qcoeff, w, h, qp, bit_depth)
+    _require_blocks(qcoeff, w, h, "dequant_batch")
+    scale, rs = _dequant_params(w, h, qp, bit_depth)
+    out = torch.empty_like(qcoeff)
+    if qcoeff.numel() == 0:
+        return out
+    fn = kernels.function("quant_batch", "vt_dequant_batch",
+                          [_P, _P, _L, _I, _I, _P])
+    err = fn(qcoeff.data_ptr(), out.data_ptr(), qcoeff.numel(), scale, rs,
+             kernels.stream_ptr(out))
+    kernels.check("quant_batch", err)
+    kernels.count("dequant_batch")
+    return out
