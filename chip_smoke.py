@@ -7,9 +7,10 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
 
 1. Requires torch.cuda.is_available(); prints the card's name and power
    limit (nvidia-smi).
-2. Builds the seven CUDA kernel sources (csrc/*.cu, one nvcc per source,
-   all started together) and the native host library
-   (native/entropy.cpp, g++), and prints the build seconds.
+2. Builds the eleven CUDA kernel sources (csrc/*.cu, one nvcc per
+   source, all started together), the native host library
+   (native/entropy.cpp, g++) and the C shim with its C client
+   (capi_c/, g++ against libpython), and prints the build seconds.
 3. Holds each kernel against its plain PyTorch version on the card:
    - K1 (intra_pred_all), K2 (satd_modes), K3 (plan_trial) on 4 smooth
      1920x1080 luma frames at 8 and at 10 bits, every plan class 4..64:
@@ -33,6 +34,18 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      chosen prediction) for every square class 4..64 plus 8x4 and 16x8,
      at 8 and 10 bits, QPs 22, 37, 51 and both slice types; timed per
      class at 10 bits, QP 37, intra.
+   - K8-K11 through their public functions at 1080p shapes, each first
+     in a path run (the full-width calls at 10 bits, the launch counts
+     set to 0 just before and read just after), then against its plain
+     version at 8 and 10 bits: K8 mc_batch bit-exact on the windows of
+     every 16x16 block of a second picture at the 16 quarter-pel phases
+     and on the 8x8 blocks of a 960x540 plane at five 1/32 phases; K9
+     full_search_sse_batch (16x16, R = 16, B = 8,040) integer SSEs and
+     argmins equal; K10 sse/sad/satd_batch bit-exact at [8040, 16, 16]
+     and [480, 64, 64], tiles 4 and 8; K11 mode_costs_batch bit-exact on
+     the 1080p 16x16 and 32x32 grids and the 416x240 4x4, 8x8 and 64x64
+     grids (8-bit: 416x240, every size), build_ref_mains (host) timed
+     apart.  Times at 10 bits.
 4. The main paths, each through vvenc_tpu_torch.__main__.main with
    --device cuda --verify, the launch counts set to 0 just before and
    read just after, the port's decoder giving back every picture of the
@@ -44,9 +57,16 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
    - 1920x1080 all-intra --preset medium, 2 frames: intra_presel must
      resolve to "source" and K4 launch;
    - config 2 (832x480, 17 frames, QP 37, --gop-size 8 --intra-period 0
-     --preset faster) and config 3 cut to 5 frames (1920x1080, QP 32,
+     --preset faster) and config 3 cut to 3 frames (1920x1080, QP 32,
      --preset medium --gop-size 2 --intra-period 0 --qpa 1 --wpp
      --threads 2), both with --set me_mode=device: K5 must launch;
+   - the library entry points: VVEncImpl streaming config 1's options
+     (K1-K3 must launch in its window) and config 2's with
+     me_mode=device (K5 must launch), each equal to the batch encoder
+     of the same options and decoded; ffapp.main on a .cfg file of
+     config 1's options equal to the CLI's stream; the C shim driven by
+     its C client in a process of its own (two 416x240 pictures), equal
+     to the Python C API path and decoded;
    - the mesh path, on a 2x2 mesh of 4 positions spread over the visible
      cards (several on one card, each on its own stream, when there are
      fewer cards; the run prints how many): search_step on the 1080p
@@ -106,6 +126,18 @@ KERNELS = {
                     "vvenc_tpu/ops/transforms.py:542"),
     "dequant_batch": ("vvenc_tpu_torch/csrc/quant_batch.cu",
                       "vvenc_tpu/ops/transforms.py:565"),
+    "mc_batch": ("vvenc_tpu_torch/csrc/mc_batch.cu",
+                 "vvenc_tpu/ops/interp.py:183"),
+    "full_search_sse": ("vvenc_tpu_torch/csrc/full_search.cu",
+                        "vvenc_tpu/ops/me.py:38"),
+    "sse_batch": ("vvenc_tpu_torch/csrc/dist_batch.cu",
+                  "vvenc_tpu/ops/rdcost.py:67"),
+    "sad_batch": ("vvenc_tpu_torch/csrc/dist_batch.cu",
+                  "vvenc_tpu/ops/rdcost.py:73"),
+    "satd_batch": ("vvenc_tpu_torch/csrc/dist_batch.cu",
+                   "vvenc_tpu/ops/rdcost.py:78"),
+    "mode_costs": ("vvenc_tpu_torch/csrc/mode_costs.cu",
+                   "vvenc_tpu/ops/intra_batch.py:100"),
 }
 PLAN_KERNELS = ("intra_pred_all", "satd_modes", "plan_trial")
 TR_KERNELS = ("fwd_transform_batch", "inv_transform_batch", "quant_batch",
@@ -118,6 +150,19 @@ TR_FUNCTIONS = {"fwd_transform_batch": "::fwd_kernel(",
                 "inv_transform_batch": "::inv_kernel(",
                 "quant_batch": "::quant_kernel(",
                 "dequant_batch": "::dequant_kernel("}
+# K8-K11: the public functions that only their own callers reach
+BATCH_KERNELS = ("mc_batch", "full_search_sse", "sse_batch", "sad_batch",
+                 "satd_batch", "mode_costs")
+# the __global__ function of each K8-K11 entry at its timed shape
+BATCH_FUNCTIONS = {"mc_batch": "mc_kernel<8>",
+                   "full_search_sse": "::full_search_kernel(",
+                   "sse_batch": "dist_kernel<true>",
+                   "sad_batch": "dist_kernel<false>",
+                   "satd_batch": "satd_small_kernel<8>",
+                   "mode_costs": "mode_costs_kernel<8>"}
+# K8's phases: the 16 quarter-pel luma phases, a few 1/32 chroma ones
+LUMA_PHASES = tuple((fx, fy) for fy in (0, 4, 8, 12) for fx in (0, 4, 8, 12))
+CHROMA_PHASES = ((0, 0), (16, 0), (0, 8), (5, 27), (31, 31))
 
 
 def make_clip(path: str, w: int, h: int, frames: int) -> None:
@@ -149,6 +194,11 @@ def luma_frames(w: int, h: int, n: int, bit_depth: int, seed: int):
         + 0.1 * top
     return [np.ascontiguousarray(base[i:i + h, 2 * i:2 * i + w]
                                  .astype(np.int32)) for i in range(n)]
+
+
+def nonzero(launches: dict) -> dict:
+    """The entries of a launch count that launched."""
+    return {k: v for k, v in launches.items() if v}
 
 
 def card_line() -> str:
@@ -259,6 +309,49 @@ def me_work(W: int, H: int, R: int) -> tuple:
     plane = (H + 192) * (W + 192)
     return (2 * plane * 2 + N * 12,
             2 * plane + N * (D * 16 * 3 + 49 * 256 * 3 + D + 49))
+
+
+def mc_work(B: int, w: int, h: int, ntaps: int, fx: int, fy: int) -> tuple:
+    """(bytes, int32 operations) of one K8 call: the int32 windows read
+    once, the output written once; a filter output costs 2 per tap
+    (multiply, add) and 2 more (offset, shift), the last stage 2 more
+    (clip); the two-stage case filters every window row first."""
+    nbytes = B * ((h + ntaps - 1) * (w + ntaps - 1) + h * w) * 4
+    if fx == 0 and fy == 0:
+        return nbytes, 0
+    last = h * w * (2 * ntaps + 4)
+    first = (h + ntaps - 1) * w * (2 * ntaps + 2) if fx and fy else 0
+    return nbytes, B * (first + last)
+
+
+def fs_work(B: int, h: int, w: int, R: int) -> tuple:
+    """(bytes, int32 operations) of K9: blocks and areas read once, the
+    float32 costs written once; per displacement and sample a subtract,
+    a multiply and an add."""
+    g = 2 * R + 1
+    return (B * (h * w + (h + 2 * R) * (w + 2 * R) + g * g) * 4,
+            B * g * g * h * w * 3)
+
+
+def dist_work(name: str, B: int, H: int, W: int, tile: int = 8) -> tuple:
+    """(bytes, int32 operations) of one K10 entry: both inputs read once,
+    [B] written; per sample a subtract and an add plus a multiply (sse)
+    or an abs (sad), or for satd the tile's 2 log2(tile) butterfly adds
+    and an abs."""
+    n = B * H * W
+    ops = 3 * n if name != "satd_batch" else \
+        n * (3 + 2 * (tile.bit_length() - 1))
+    return n * 8 + B * 4, ops
+
+
+def mode_work(B: int, s: int) -> tuple:
+    """(bytes, int32 operations) of K11 on B blocks of s x s: rm, the
+    source blocks and both references read once, [B, 67] written; per
+    prediction sample K1's 11 operations and K2's 9 (no intermediate is
+    written)."""
+    L = 3 * s + 8
+    return (B * (67 * L + s * s + 2 * (2 * s + 3) + 67) * 4,
+            B * 67 * s * s * (11 + 9))
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple:
@@ -542,6 +635,329 @@ def run_tr(torch, dev, pics, reps, plain_reps):
                     (v for k, v in prof.items() if fname in k), None)
             recs.append(rec)
     return recs
+
+
+def grid_windows(torch, dev, pic, bs, span, off_y, off_x):
+    """[B, span, span] int32 windows of an edge-padded picture on the
+    card, one per bs x bs grid block (B row-major), each starting at the
+    block's corner plus (off_y, off_x)."""
+    H, W = pic.shape
+    ny, nx = H // bs, W // bs
+    P = span + abs(off_y) + abs(off_x)
+    plane = torch.from_numpy(np.pad(pic, P, mode="edge").astype(np.int32)
+                             ).to(dev)
+    v = plane[P + off_y:, P + off_x:].unfold(0, span, bs).unfold(
+        1, span, bs)[:ny, :nx]
+    return v.reshape(ny * nx, span, span).contiguous()
+
+
+def mode_inputs(torch, dev, pic, s):
+    """K11's inputs for the s x s grid of a picture: (src, rm, tops,
+    lefts) on the card and the host seconds of build_ref_mains."""
+    from vvenc_tpu_torch.ops import intra_batch as IB
+    from vvenc_tpu_torch.ops import intra_presel as S
+    H, W = pic.shape
+    xs, ys, _, _ = S._class_grid(W, H, s, s, mtt=False)
+    src, tops, lefts = S.plane_inputs(padded_plane(torch, dev, pic),
+                                      S.FramePresel.PAD, xs, ys, s, s)
+    t0 = time.perf_counter()
+    rm = IB.build_ref_mains(tops.cpu().numpy(), lefts.cpu().numpy(), s, s)
+    secs = time.perf_counter() - t0
+    return (src, torch.from_numpy(rm).to(dev), tops, lefts), secs
+
+
+def run_batch_ops(torch, dev, kernels, pics, small, reps, plain_reps):
+    """K8-K11 through their public functions at 1080p shapes.  First the
+    path run of each (the launch counts set to 0 just before, read just
+    after: the full-width calls at 10 bits), then every call again at 8
+    and 10 bits against the plain versions (bit-exact; K9's SSEs and
+    argmins equal), then the times at 10 bits.  pics: {bd: (picture,
+    second picture)} 1920x1080; small: {bd: 416x240 picture}.  Returns
+    the report record."""
+    from vvenc_tpu_torch.ops import interp as IP
+    from vvenc_tpu_torch.ops import intra_batch as IB
+    from vvenc_tpu_torch.ops import me as M
+    from vvenc_tpu_torch.ops import rdcost as RD
+    R = 16
+
+    def inputs(bd):
+        p1, p2 = pics[bd]
+        chroma = np.ascontiguousarray(p2[::2, ::2])      # a 960x540 plane
+        return {
+            # every 16x16 block, its 23x23 window displaced by (-2, 1)
+            "luma": grid_windows(torch, dev, p2, 16, 23, -3 - 2, -3 + 1),
+            "chroma": grid_windows(torch, dev, chroma, 8, 11, -1 + 1, -1),
+            "blocks": grid_windows(torch, dev, p1, 16, 16, 0, 0),
+            "areas": grid_windows(torch, dev, p2, 16, 16 + 2 * R, -R, -R),
+            "b16": grid_windows(torch, dev, p2, 16, 16, 0, 0),
+            "a64": grid_windows(torch, dev, p1, 64, 64, 0, 0),
+            "b64": grid_windows(torch, dev, p2, 64, 64, 0, 0)}
+
+    def mc_calls(x, bd):
+        return ([(f"luma {fx},{fy}", lambda fx=fx, fy=fy: IP.mc_batch(
+                    x["luma"], fx, fy, 16, 16, bd, True))
+                 for fx, fy in LUMA_PHASES]
+                + [(f"chroma {fx},{fy}", lambda fx=fx, fy=fy: IP.mc_batch(
+                    x["chroma"], fx, fy, 8, 8, bd, False))
+                   for fx, fy in CHROMA_PHASES])
+
+    def dist_calls(x):
+        out = []
+        for tag, a, b in (("16x16", x["blocks"], x["b16"]),
+                          ("64x64", x["a64"], x["b64"])):
+            out += [(f"sse {tag}", lambda a=a, b=b: RD.sse_batch(a, b)),
+                    (f"sad {tag}", lambda a=a, b=b: RD.sad_batch(a, b))]
+            out += [(f"satd {tag} tile {t}", lambda a=a, b=b, t=t:
+                     RD.satd_batch(a, b, t)) for t in (4, 8)]
+        return out
+
+    x10 = inputs(10)
+    mi10 = {}
+    ref_secs = {}
+    for tag, pic, s in (("1080p 16x16", pics[10][0], 16),
+                        ("1080p 32x32", pics[10][0], 32),
+                        ("416x240 4x4", small[10], 4),
+                        ("416x240 8x8", small[10], 8),
+                        ("416x240 64x64", small[10], 64)):
+        mi10[tag], ref_secs[tag] = mode_inputs(torch, dev, pic, s)
+    torch.cuda.synchronize()
+    # the path runs: the full-width calls of each public function
+    paths = {}
+    for name, need, run in (
+            ("mc_batch", ("mc_batch",),
+             lambda: [c() for _, c in mc_calls(x10, 10)]),
+            ("full_search_sse", ("full_search_sse",), lambda: M.best_mv_batch(
+                x10["blocks"], x10["areas"], 16, 16)),
+            ("dist_batch", ("sse_batch", "sad_batch", "satd_batch"),
+             lambda: [c() for _, c in dist_calls(x10)]),
+            ("mode_costs", ("mode_costs",), lambda: [IB.mode_costs_batch(
+                *mi10[t], int(t.split("x")[-1]), int(t.split("x")[-1]), 10)
+                for t in mi10])):
+        kernels.reset_launches()
+        run()
+        torch.cuda.synchronize()
+        paths[name] = dict(kernels.launches)
+        missing = [n for n in need if paths[name][n] < 1]
+        if missing:
+            fail(f"{name} path run: {missing} never launched: "
+                 f"{paths[name]}")
+    # the checks against the plain versions, 8 and 10 bits
+    for bd in (10, 8):
+        x = x10 if bd == 10 else inputs(8)
+        for tag, call in mc_calls(x, bd):
+            luma = tag.startswith("luma")
+            fx, fy = (int(v) for v in tag.split()[1].split(","))
+            w = 16 if luma else 8
+            got = call()
+            want = IP.mc_batch_ref(x["luma" if luma else "chroma"], fx, fy,
+                                   w, w, bd, luma)
+            if not torch.equal(got, want):
+                fail(f"K8 mc_batch != plain, {tag}, {bd}-bit")
+        costs = M.full_search_sse_batch(x["blocks"], x["areas"], 16, 16)
+        ref = M.full_search_sse_batch_ref(x["blocks"], x["areas"], 16, 16)
+        if not torch.equal(costs, ref):
+            fail(f"K9 full_search_sse != plain at {bd} bits: "
+                 f"{int((costs != ref).sum())} costs differ")
+        if not torch.equal(costs.flatten(1).argmin(dim=1),
+                           ref.flatten(1).argmin(dim=1)):
+            fail(f"K9 argmins != plain at {bd} bits")
+        for tag, call in dist_calls(x):
+            a, b = (x["blocks"], x["b16"]) if "16x16" in tag else \
+                (x["a64"], x["b64"])
+            kind = tag.split()[0]
+            want = {"sse": lambda: RD.sse_batch_ref(a, b),
+                    "sad": lambda: RD.sad_batch_ref(a, b),
+                    "satd": lambda: RD.satd_batch_ref(
+                        a, b, int(tag.split()[-1]))}[kind]()
+            if not torch.equal(call(), want):
+                fail(f"K10 {tag} != plain at {bd} bits")
+        mi = mi10 if bd == 10 else {
+            f"416x240 {s}x{s}": mode_inputs(torch, dev, small[8], s)[0]
+            for s in (4, 8, 16, 32, 64)}
+        for tag, args in mi.items():
+            s = int(tag.split("x")[-1])
+            if not torch.equal(IB.mode_costs_batch(*args, s, s, bd),
+                               IB.mode_costs_batch_ref(*args, s, s, bd)):
+                fail(f"K11 mode_costs != plain, {tag}, {bd}-bit")
+        torch.cuda.synchronize()
+        del x
+    # times at 10 bits: the kernels', the profiler's and the plain ones
+    B16 = x10["blocks"].shape[0]
+    rec = {"launches": paths, "build_ref_mains_s": ref_secs, "ms": {},
+           "plain_ms": {}, "work": {}, "device_ms": {}, "per_call": {}}
+    mc = [(fx, fy, cuda_ms(torch, lambda fx=fx, fy=fy: IP.mc_batch(
+        x10["luma"], fx, fy, 16, 16, 10, True), reps),
+        cuda_ms(torch, lambda fx=fx, fy=fy: IP.mc_batch_ref(
+            x10["luma"], fx, fy, 16, 16, 10, True), plain_reps))
+        for fx, fy in LUMA_PHASES]
+    rec["per_call"]["mc_batch"] = mc
+    rec["ms"]["mc_batch"] = sum(m[2] for m in mc) / len(mc)
+    rec["plain_ms"]["mc_batch"] = sum(m[3] for m in mc) / len(mc)
+    wk = [mc_work(B16, 16, 16, 8, fx, fy) for fx, fy in LUMA_PHASES]
+    rec["work"]["mc_batch"] = (sum(w[0] for w in wk) / len(wk),
+                               sum(w[1] for w in wk) / len(wk))
+    timed = {
+        "full_search_sse": (lambda: M.full_search_sse_batch(
+            x10["blocks"], x10["areas"], 16, 16), lambda:
+            M.full_search_sse_batch_ref(x10["blocks"], x10["areas"], 16, 16),
+            fs_work(B16, 16, 16, R)),
+        "sse_batch": (lambda: RD.sse_batch(x10["blocks"], x10["b16"]),
+                      lambda: RD.sse_batch_ref(x10["blocks"], x10["b16"]),
+                      dist_work("sse_batch", B16, 16, 16)),
+        "sad_batch": (lambda: RD.sad_batch(x10["blocks"], x10["b16"]),
+                      lambda: RD.sad_batch_ref(x10["blocks"], x10["b16"]),
+                      dist_work("sad_batch", B16, 16, 16)),
+        "satd_batch": (lambda: RD.satd_batch(x10["blocks"], x10["b16"], 8),
+                       lambda: RD.satd_batch_ref(x10["blocks"], x10["b16"],
+                                                 8),
+                       dist_work("satd_batch", B16, 16, 16, 8)),
+        "mode_costs": (lambda: IB.mode_costs_batch(
+            *mi10["1080p 16x16"], 16, 16, 10), lambda:
+            IB.mode_costs_batch_ref(*mi10["1080p 16x16"], 16, 16, 10),
+            mode_work(B16, 16))}
+    for n, (kern, plain, w) in timed.items():
+        rec["ms"][n] = cuda_ms(torch, kern, reps)
+        rec["plain_ms"][n] = cuda_ms(torch, plain, plain_reps)
+        rec["work"][n] = w
+    B32 = mi10["1080p 32x32"][0].shape[0]
+    rec["per_call"]["mode_costs 32x32"] = {
+        "B": B32, "work": mode_work(B32, 32),
+        "ms": cuda_ms(torch, lambda: IB.mode_costs_batch(
+            *mi10["1080p 32x32"], 32, 32, 10), reps)}
+    rec["per_call"]["satd_batch tile 4"] = {
+        "ms": cuda_ms(torch, lambda: RD.satd_batch(x10["blocks"],
+                                                   x10["b16"], 4), reps),
+        "work": dist_work("satd_batch", B16, 16, 16, 4)}
+    prof = device_ms(torch, [
+        lambda: IP.mc_batch(x10["luma"], 8, 8, 16, 16, 10, True)]
+        + [timed[n][0] for n in timed], reps)
+    for n, fname in BATCH_FUNCTIONS.items():
+        rec["device_ms"][n] = next(
+            (v for k, v in prof.items() if fname in k), None)
+    rec["B"] = B16
+    return rec
+
+
+def api_phase(torch, kernels, clips, tmp, report):
+    """The library entry points on the card: VVEncImpl streaming config
+    1's and config 2's options (me_mode=device) against the batch
+    encoder of the same options in this run, each streaming run in a
+    launch window; ffapp.main on a .cfg of config 1's options against
+    the CLI's stream of phase 4; the C shim through its C client (two
+    416x240 pictures) against the Python C API path.  Returns the
+    windows' launch counts."""
+    from vvenc_tpu_torch import capi, capi_c, ffapp
+    from vvenc_tpu_torch.__main__ import encoder_config_from
+    from vvenc_tpu_torch.api import VVENC_OK, VVEncImpl
+    from vvenc_tpu_torch.config import Preset, VvencTpuConfig, init_preset
+    from vvenc_tpu_torch.config.config import apply_derived, set_param
+    from vvenc_tpu_torch.decoder import decode_stream
+    from vvenc_tpu_torch.encoder import IntraEncoder
+    from vvenc_tpu_torch.utils.yuv_io import read_yuv
+    windows = {}
+    for tag, clip, w, h, n, extra, need in (
+            ("api_config1", clips["config1"][0], 416, 240, 10,
+             dict(intra_period=1, gop_size=1), PLAN_KERNELS),
+            ("api_config2", clips["config2"][0], 832, 480, 17,
+             dict(intra_period=0, gop_size=8, me_mode="device"),
+             ("frame_me",))):
+        frames = list(read_yuv(clip, w, h, 8, n))
+
+        def config():
+            cfg = VvencTpuConfig(width=w, height=h, qp=37)
+            init_preset(cfg, Preset.FASTER)
+            for k, v in extra.items():
+                set_param(cfg, k, v)
+            return cfg
+        impl = VVEncImpl()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if impl.init(config()) != VVENC_OK:
+            fail(f"{tag}: init failed: {impl.last_error()}")
+        out = bytearray()
+        for f in frames:
+            au, _, rc = impl.encode(f)
+            if rc != VVENC_OK:
+                fail(f"{tag}: encode returned {rc}: {impl.last_error()}")
+            out += au
+        au, done, rc = impl.encode(None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        if rc != VVENC_OK or not done:
+            fail(f"{tag}: flush returned {rc}")
+        stream = bytes(out + au)
+        missing = [k for k in need if launches[k] < 1]
+        if missing:
+            fail(f"{tag}: {missing} never launched: {launches}")
+        cfg = config()
+        apply_derived(cfg)
+        batch = IntraEncoder(encoder_config_from(cfg, None)).encode_sequence(
+            frames)
+        if stream != batch:
+            fail(f"{tag}: the streamed stream ({len(stream)} bytes) != "
+                 f"the batch encode ({len(batch)} bytes)")
+        dec = decode_stream(stream)
+        recs = impl._enc.recs_by_poc
+        if len(dec) != n or any(
+                not np.array_equal(fr.planes[c], recs[fr.poc][c])
+                for fr in dec for c in range(3)):
+            fail(f"{tag}: decoded stream != the encoder's reconstruction")
+        windows[tag] = launches
+        report[tag] = {"bytes": len(stream), "fps": n / secs,
+                       "launches": launches}
+        print(f"phase 4: {tag} VVEncImpl {w}x{h} x{n} streamed == batch "
+              f"({len(stream)} bytes), decode == recon, {n / secs:.3f} fps "
+              f"(init to flush), launches {nonzero(launches)}", flush=True)
+    # ffapp on a cfg file of config 1's options == the CLI's stream
+    clip1 = clips["config1"][0]
+    cfgf = os.path.join(tmp, "config1.cfg")
+    out = os.path.join(tmp, "ffapp.266")
+    with open(cfgf, "w") as f:
+        f.write(f"InputFile : {clip1}\nBitstreamFile : {out}\n"
+                "SourceWidth : 416\nSourceHeight : 240\n"
+                "FramesToBeEncoded : 10\nQP : 37\nIntraPeriod : 1\n"
+                "Preset : faster\n")
+    kernels.reset_launches()
+    if ffapp.main(["-c", cfgf, "--verify"]) != 0:
+        fail("ffapp: the encode returned non-zero (--verify mismatch?)")
+    windows["ffapp"] = dict(kernels.launches)
+    with open(out, "rb") as f:
+        a = f.read()
+    with open(os.path.join(tmp, "config1.266"), "rb") as f:
+        b = f.read()
+    if a != b:
+        fail(f"ffapp: {len(a)} bytes != the CLI's {len(b)} bytes")
+    print(f"phase 4: ffapp -c config1.cfg --verify: equal to the CLI "
+          f"stream ({len(a)} bytes), launches {nonzero(windows['ffapp'])}",
+          flush=True)
+    # the C shim through its C client: two 416x240 pictures on the card
+    params = "width=416;height=240;qp=37;intra_period=1;gop_size=1;" \
+        "preset=faster"
+    out = os.path.join(tmp, "capi.266")
+    t0 = time.perf_counter()
+    r = capi_c.run_client(out, params, 416, 240, 2)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0 or "capi ok" not in r.stdout:
+        fail(f"C shim client exited {r.returncode}:\n{r.stdout}\n"
+             f"{r.stderr[-4000:]}")
+    with open(out, "rb") as f:
+        data = f.read()
+    h = capi.capi_open(params)
+    ref = b"".join(capi.capi_encode(h, y.tobytes(), u.tobytes(), v.tobytes())
+                   for y, u, v in capi_c.client_frames(416, 240, 2))
+    ref += capi.capi_flush(h)
+    capi.capi_close(h)
+    if data != ref:
+        fail(f"C shim: {len(data)} bytes != the Python C API path's "
+             f"{len(ref)}")
+    if len(decode_stream(data)) != 2:
+        fail("C shim: the stream does not decode to 2 pictures")
+    report["capi"] = {"bytes": len(data), "client_seconds": secs}
+    print(f"phase 4: C shim client (2 pictures 416x240, a process of its "
+          f"own, {secs:.1f} s): {r.stdout.strip()}; equal to the Python C "
+          f"API path, decoded", flush=True)
+    return windows
 
 
 def mesh_phase(torch, dev, kernels, clips, pic, report):
@@ -842,7 +1258,8 @@ def main(argv=None) -> int:
     built = {}
     th = threading.Thread(target=lambda: built.update(kernels.build()))
     th.start()
-    from vvenc_tpu_torch import native
+    from vvenc_tpu_torch import capi_c, native
+    capi_c.build()
     th.join()
     t_build = time.time() - t0
     if not native.available():
@@ -851,8 +1268,8 @@ def main(argv=None) -> int:
     missing = [n for n in kernels.SOURCES if not kernels.so_path(n).exists()]
     if missing:
         fail(f"kernels not built: {missing}")
-    print(f"phase 2: built {len(kernels.SOURCES)} kernel sources + native "
-          f"library in {t_build:.1f} s", flush=True)
+    print(f"phase 2: built {len(kernels.SOURCES)} kernel sources, the "
+          f"native library and the C shim in {t_build:.1f} s", flush=True)
     for n, log in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -959,6 +1376,32 @@ def main(argv=None) -> int:
     report["transforms"] = trecs
     tr16 = next(r for r in trecs if (r["w"], r["h"]) == (16, 16))
 
+    # phase 3, K8-K11: their public functions at 1080p shapes
+    pair8 = luma_frames(W, H, 2, 8, seed=81)
+    batch = run_batch_ops(
+        torch, dev, kernels,
+        {10: (pic10, luma_frames(W, H, 2, 10, seed=31)[1]),
+         8: tuple(pair8)},
+        {bd: luma_frames(416, 240, 1, bd, seed=91)[0] for bd in (8, 10)},
+        reps=20, plain_reps=2)
+    print(f"phase 3: K8 mc_batch ({len(LUMA_PHASES)} luma phases on "
+          f"{batch['B']} 16x16 blocks, {len(CHROMA_PHASES)} chroma phases "
+          "on 8x8 blocks of 960x540), K9 full_search_sse (16x16, R=16: "
+          "integer SSEs and argmins equal), K10 sse/sad/satd (tiles 4 and "
+          "8, [B,16,16] and [480,64,64]) and K11 mode_costs (1080p 16x16 "
+          "and 32x32, 416x240 4x4/8x8/64x64; 8-bit on 416x240 4..64) "
+          "bit-exact against their plain versions at 8 and 10 bits; "
+          "build_ref_mains (host) " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in
+              batch["build_ref_mains_s"].items()), flush=True)
+    for n in BATCH_KERNELS:
+        print(f"  {n}: {batch['ms'][n]:.4f} ms (kernel alone "
+              f"{dev_str(batch['device_ms'][n])}, plain "
+              f"{batch['plain_ms'][n]:.3f}, bound "
+              f"{bound_ms(*batch['work'][n])[0]:.4f} "
+              f"{bound_ms(*batch['work'][n])[1]})")
+    report["batch_ops"] = batch
+
     # phase 4: the main paths through the CLI
     from vvenc_tpu_torch.utils.devclock import DEV
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -967,7 +1410,6 @@ def main(argv=None) -> int:
     _, report["config1"] = encode_phase(
         torch, kernels, DEV, "config1", clip1, 416, 240, 10, 37, "faster",
         ["--intra-period", "1"], PLAN_KERNELS, plan=True)
-    launches = report["config1"]["launches"]
     clip_hd = os.path.join(tmp, "hd.yuv")
     make_clip(clip_hd, 1920, 1080, 4)
     _, report["hd"] = encode_phase(
@@ -984,33 +1426,46 @@ def main(argv=None) -> int:
         torch, kernels, DEV, "config2", clip2, 832, 480, 17, 37, "faster",
         ["--gop-size", "8", "--intra-period", "0", "--set",
          "me_mode=device"], ("frame_me",))
+    # config 3 cut from 9 to 3 frames (the IDR and one GOP of 2) to keep
+    # the run near its time
     clip3 = os.path.join(tmp, "c3.yuv")
-    make_clip(clip3, 1920, 1080, 5)
+    make_clip(clip3, 1920, 1080, 3)
     _, report["config3"] = encode_phase(
-        torch, kernels, DEV, "config3", clip3, 1920, 1080, 5, 32,
+        torch, kernels, DEV, "config3", clip3, 1920, 1080, 3, 32,
         "medium", ["--gop-size", "2", "--intra-period", "0", "--qpa", "1",
                    "--wpp", "--threads", "2", "--set", "me_mode=device"],
         ("frame_me",))
     clips = {"config1": (clip1, 416, 240, 10, "faster", True),
              "hd_faster": (clip_hd, 1920, 1080, 4, "faster", True),
-             "hd_medium": (clip_hd, 1920, 1080, 2, "medium", False)}
+             "hd_medium": (clip_hd, 1920, 1080, 2, "medium", False),
+             "config2": (clip2,)}
+    api_launches = api_phase(torch, kernels, clips, tmp, report)
+    del clips["config2"]
     mesh_launches = mesh_phase(torch, dev, kernels, clips, pic10,
                                report)
 
-    # phase 5: one line per kernel entry; launches from the main path
-    # that runs it at the timed shape (K1-K3 config 1, K4 the 1080p
-    # medium all-intra encode, K5 config 3, K4's gathered entry the same
-    # encode with intra_presel.MESH set, K6 and K7 dryrun_multichip(4))
+    # phase 5: one line per kernel entry; launches from the path run
+    # that reaches it (K1-K3 VVEncImpl streaming config 1, K4 the 1080p
+    # medium all-intra encode, K5 VVEncImpl streaming config 2, K4's
+    # gathered entry that encode with intra_presel.MESH set, K6 and K7
+    # dryrun_multichip(4), K8-K11 the full-width calls of their public
+    # functions)
     entries = []
     for n, (src, replaces) in KERNELS.items():
-        if n in PLAN_KERNELS:
+        if n in BATCH_KERNELS:
+            ms, plain_ms, err = batch["ms"][n], batch["plain_ms"][n], 0.0
+            bms, by = bound_ms(*batch["work"][n])
+            path = "dist_batch" if n in ("sse_batch", "sad_batch",
+                                         "satd_batch") else n
+            nl = batch["launches"][path][n]
+        elif n in PLAN_KERNELS:
             ms = sum(r["ms"][n] for r in crecs)
             plain_ms = sum(r["plain_ms"][n] for r in crecs)
             bms, by = bound_ms(sum(r["work"][n][0] for r in crecs),
                                sum(r["work"][n][1] for r in crecs))
             err = max(r["k3_max_abs_err"] for r in crecs) \
                 if n == "plan_trial" else 0.0
-            nl = launches[n]
+            nl = api_launches["api_config1"][n]
         elif n == "presel_costs":
             ms, plain_ms, bms, by, err = pms, sum(
                 r["plain_ms"] for r in precs), pbound, pby, 0.0
@@ -1027,7 +1482,7 @@ def main(argv=None) -> int:
         else:
             ms, plain_ms, err = me["ms"], me["plain_ms"], me["max_abs_err"]
             bms, by = bound_ms(*me["work"])
-            nl = report["config3"]["launches"][n]
+            nl = api_launches["api_config2"][n]
         entries.append({"name": n, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": nl,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -153,3 +153,46 @@ def test_mesh_hooks_keep_the_encoder_on_its_device():
                                        64, 8, 37, [10.0], [3.0])
         finally:
             intra_plan.MESH = None
+
+
+def test_fourth_slice_modules_import_no_jax_and_no_vvenc_tpu():
+    """The batched programs of the fourth slice and the library entry
+    points (api, capi, ffapp, the C shim's build helper) pull in neither
+    jax nor the JAX package."""
+    mods = ["ops.intra_batch", "ops.interp", "ops.rdcost", "ops.me", "api",
+            "capi", "ffapp", "capi_c"]
+    code = ("import sys\n"
+            + "".join(f"import vvenc_tpu_torch.{m}\n" for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'vvenc_tpu'))\n"
+            "print(repr(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_c_shim_drives_the_port_and_not_the_jax_package():
+    src = (PKG / "capi_c" / "vvenc_tpu_torch_capi.cpp").read_text()
+    assert 'PyImport_ImportModule("vvenc_tpu_torch.capi")' in src
+    assert "vvenc_tpu.capi" not in src.replace("vvenc_tpu_torch.capi", "")
+    # the same C symbols as the repository's header, so a client of
+    # vvenc_tpu.h links against either library
+    decl = re.compile(r"^\S.*\b(vvenc_tpu_\w+)\s*\(", re.M)
+    ours = (PKG / "capi_c" / "vvenc_tpu.h").read_text()
+    theirs = (ROOT / "capi" / "vvenc_tpu.h").read_text()
+    assert decl.findall(ours) == decl.findall(theirs)
+    assert len(decl.findall(ours)) == 9
+
+
+def test_library_entry_points_default_to_cuda_and_raise_without_a_card():
+    _no_card()
+    from vvenc_tpu_torch.api import VVENC_ERR_INITIALIZE, VVEncImpl
+    from vvenc_tpu_torch import capi
+    impl = VVEncImpl()
+    assert impl.init(VvencTpuConfig(width=64, height=64)) \
+        == VVENC_ERR_INITIALIZE
+    assert "cuda" in impl.last_error()
+    with pytest.raises(ValueError, match="cuda"):
+        capi.capi_open("width=64;height=64;qp=37;intra_period=1")

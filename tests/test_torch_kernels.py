@@ -272,3 +272,95 @@ def test_mesh_of_four_positions_on_one_card(cuda):
         bits = torch.where(better, bits2, bits1)
         assert int(tot) == int(bits.sum())
         assert torch.equal(per_gop, grid(bits).sum(dim=(1, 2)))
+
+
+# ---- the fourth slice: K8 mc_batch, K9 full_search_sse, K10 dist_batch,
+# K11 mode_costs ---------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("luma", [True, False])
+def test_mc_batch_matches_plain(cuda, luma, bd):
+    from vvenc_tpu_torch.ops import interp as IP
+    rng = np.random.RandomState(bd + 2 * luma)
+    n = IP.NTAPS_LUMA if luma else IP.NTAPS_CHROMA
+    phases = (16 if luma else 32)
+    for (w, h) in ((8, 8), (16, 4), (4, 16), (64, 64), (128, 128)):
+        win = torch.from_numpy(rng.randint(0, 1 << bd, (9, h + n - 1,
+                                                        w + n - 1))
+                               .astype(np.int32)).to(cuda)
+        win[0] = (1 << bd) - 1
+        win[1] = 0
+        for fx, fy in ((0, 0), (phases // 2, 0), (0, 3), (1, phases - 1),
+                       (phases - 1, phases // 4)):
+            c0 = kernels.launches["mc_batch"]
+            got = IP.mc_batch(win, fx, fy, w, h, bd, luma)
+            want = IP.mc_batch_ref(win, fx, fy, w, h, bd, luma)
+            torch.cuda.synchronize()
+            assert kernels.launches["mc_batch"] == c0 + 1
+            assert torch.equal(got, want), (w, h, fx, fy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,R", [(8, 4), (16, 16), (64, 8), (32, 64)])
+def test_full_search_matches_plain(cuda, s, R):
+    from vvenc_tpu_torch.ops import me as M
+    rng = np.random.RandomState(s + R)
+    B = 21
+    blocks = torch.from_numpy(rng.randint(0, 1024, (B, s, s))
+                              .astype(np.int32)).to(cuda)
+    areas = torch.from_numpy(rng.randint(0, 1024, (B, s + 2 * R, s + 2 * R))
+                             .astype(np.int32)).to(cuda)
+    areas[0, 3:3 + s, 5:5 + s] = blocks[0]
+    c0 = kernels.launches["full_search_sse"]
+    got = M.full_search_sse_batch(blocks, areas, s, s)
+    want = M.full_search_sse_batch_ref(blocks, areas, s, s)
+    torch.cuda.synchronize()
+    assert kernels.launches["full_search_sse"] == c0 + 1
+    assert torch.equal(got, want)
+    my, mx, cost = M.best_mv_batch(blocks, areas, s, s)
+    assert (int(my[0]), int(mx[0]), float(cost[0])) == (3, 5, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1, 2, 4, 8, 16, 32, 64])
+def test_dist_batch_matches_plain(cuda, tile):
+    from vvenc_tpu_torch.ops import rdcost as R
+    rng = np.random.RandomState(tile)
+    for shape, lo, hi in (((13, 64, 64), 0, 1024),
+                          ((5, 64, 128), -2 ** 30, 2 ** 30),   # sums wrap
+                          ((7, 3 * 64, 5 * 64), 0, 1024)):     # 15 tiles
+        a, b = (torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int32))
+                .to(cuda) for _ in range(2))
+        for name, kern, plain, args in (
+                ("satd_batch", R.satd_batch, R.satd_batch_ref, (tile,)),
+                ("sad_batch", R.sad_batch, R.sad_batch_ref, ()),
+                ("sse_batch", R.sse_batch, R.sse_batch_ref, ())):
+            c0 = kernels.launches[name]
+            got, want = kern(a, b, *args), plain(a, b, *args)
+            torch.cuda.synchronize()
+            assert kernels.launches[name] == c0 + 1
+            assert torch.equal(got, want), (name, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("s", [4, 8, 16, 32, 64])
+def test_mode_costs_matches_plain(cuda, s, bd):
+    from vvenc_tpu_torch.ops import intra_batch as IB
+    rng = np.random.RandomState(s + bd)
+    B = 19
+    tops = rng.randint(0, 1 << bd, (B, 2 * s + 3)).astype(np.int32)
+    lefts = rng.randint(0, 1 << bd, (B, 2 * s + 3)).astype(np.int32)
+    lefts[:, 0] = tops[:, 0]
+    tops[0] = lefts[0] = (1 << bd) - 1
+    tops[1] = lefts[1] = 0
+    src = rng.randint(0, 1 << bd, (B, s, s)).astype(np.int32)
+    rm = IB.build_ref_mains(tops, lefts, s, s)
+    args = [torch.from_numpy(a).to(cuda) for a in (src, rm, tops, lefts)]
+    c0 = kernels.launches["mode_costs"]
+    got = IB.mode_costs_batch(*args, s, s, bd)
+    want = IB.mode_costs_batch_ref(*args, s, s, bd)
+    torch.cuda.synchronize()
+    assert kernels.launches["mode_costs"] == c0 + 1
+    assert torch.equal(got, want)

@@ -6,14 +6,20 @@ phases.  Behavioral reference: vvenc CommonLib/InterpolationFilter.cpp:85
 conventions with the 14-bit intermediate precision) per
 InterpolationFilter::filter<>.
 
-numpy golden path (the batched device MC of the random-access path is
-not ported yet).
+numpy golden path + the batched device path (a batch of equal-size
+windows at one fractional phase; the encoder groups blocks by phase):
+
+  mc_batch -> K8, csrc/mc_batch.cu; mc_batch_ref is its plain version
 """
 
 from __future__ import annotations
 
-import numpy as np
+import ctypes
 
+import numpy as np
+import torch
+
+from . import kernels
 from .intra import CHROMA_FILTER  # 32-phase 4-tap (shared with intra)
 
 IF_INTERNAL_PREC = 14
@@ -168,3 +174,104 @@ def bcw_average_np(a: np.ndarray, b: np.ndarray, bcw_idx: int,
     out = (a.astype(np.int64) * w0 + b.astype(np.int64) * w1 + offset) \
         >> shift
     return np.clip(out, 0, (1 << bit_depth) - 1).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# batched path: one fractional phase, a batch of windows
+# ---------------------------------------------------------------------------
+
+def _mc_plan(windows, frac_x, frac_y, w, h, bit_depth, is_luma):
+    """(taps table, ntaps, half, stage) of one mc_batch call after checking
+    its arguments; stage(frac, is_first, is_last) -> (taps, shift, offset)
+    with the reference's shift/offset scheme."""
+    taps_tbl = LUMA_FILTER if is_luma else np.asarray(CHROMA_FILTER)
+    ntaps = NTAPS_LUMA if is_luma else NTAPS_CHROMA
+    for f in (frac_x, frac_y):
+        if not 0 <= f < len(taps_tbl):
+            raise IndexError(f"mc_batch: phase {f} outside the "
+                             f"{len(taps_tbl)}-phase filter table")
+    if windows.dim() != 3 or tuple(windows.shape[1:]) != (h + ntaps - 1,
+                                                          w + ntaps - 1):
+        raise ValueError(f"windows {tuple(windows.shape)}: need [B, "
+                         f"{h + ntaps - 1}, {w + ntaps - 1}]")
+    head_room = IF_INTERNAL_PREC - bit_depth
+
+    def stage(frac, is_first, is_last):
+        shift = IF_FILTER_PREC
+        if is_last:
+            shift += 0 if is_first else head_room
+            offset = (1 << (shift - 1)) + \
+                (0 if is_first else IF_INTERNAL_OFFS << IF_FILTER_PREC)
+        else:
+            shift -= head_room if is_first else 0
+            offset = (-IF_INTERNAL_OFFS << shift) if is_first else 0
+        return [int(t) for t in taps_tbl[frac]], shift, offset
+    return ntaps, ntaps // 2 - 1, stage
+
+
+def mc_batch_ref(windows: torch.Tensor, frac_x: int, frac_y: int, w: int,
+                 h: int, bit_depth: int = 10,
+                 is_luma: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of mc_batch: the reference's int32 program
+    (its intermediates are the size of the windows)."""
+    ntaps, half, stage = _mc_plan(windows, frac_x, frac_y, w, h, bit_depth,
+                                  is_luma)
+    maxval = (1 << bit_depth) - 1
+
+    def run(src, frac, axis, is_first, is_last):
+        taps, shift, offset = stage(frac, is_first, is_last)
+        length = src.shape[axis] - ntaps + 1
+        acc = None
+        for k in range(ntaps):
+            term = taps[k] * src.narrow(axis, k, length)
+            acc = term if acc is None else acc + term
+        val = (acc + offset) >> shift
+        return torch.clamp(val, 0, maxval) if is_last else val
+
+    if frac_x == 0 and frac_y == 0:
+        return windows[:, half:half + h, half:half + w].clone()
+    if frac_y == 0:
+        return run(windows[:, half:half + h, :], frac_x, 2, True, True)
+    if frac_x == 0:
+        return run(windows[:, :, half:half + w], frac_y, 1, True, True)
+    tmp = run(windows, frac_x, 2, True, False)
+    return run(tmp, frac_y, 1, False, True)
+
+
+_K8_ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+            + [ctypes.c_int] * 25 + [ctypes.c_void_p])
+
+
+def mc_batch(windows: torch.Tensor, frac_x: int, frac_y: int, w: int,
+             h: int, bit_depth: int = 10, is_luma: bool = True) -> torch.Tensor:
+    """MC filter a batch of pre-gathered windows at one fractional phase.
+
+    windows: [B, h + ntaps - 1, w + ntaps - 1] int32 (for frac-only dims
+    the extra ntaps-1 border is still expected; integer dims use the
+    centre).  Returns [B, h, w] int32 predictions.  K8 on a CUDA device,
+    the plain version on the CPU."""
+    if windows.device.type == "cpu":
+        return mc_batch_ref(windows, frac_x, frac_y, w, h, bit_depth,
+                            is_luma)
+    dev = windows.device
+    if dev.type != "cuda":
+        raise ValueError(f"mc_batch: no kernel for {dev}")
+    kernels.require(windows, "windows", torch.int32, 3, dev)
+    ntaps, _, stage = _mc_plan(windows, frac_x, frac_y, w, h, bit_depth,
+                               is_luma)
+    B = windows.shape[0]
+    out = torch.empty((B, h, w), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    # kind: 0 copy, 1 horizontal only, 2 vertical only, 3 both
+    kind = (frac_x != 0) + 2 * (frac_y != 0)
+    tx, s1, o1 = stage(frac_x, True, kind != 3)
+    ty, s2, o2 = stage(frac_y, kind != 3, True)
+    pad = [0] * (8 - ntaps)
+    fn = kernels.function("mc_batch", "vt_mc_batch", _K8_ARGS)
+    err = fn(windows.data_ptr(), out.data_ptr(), B, w, h, ntaps, kind,
+             *(tx + pad), *(ty + pad), s1, o1, s2, o2, (1 << bit_depth) - 1,
+             kernels.stream_ptr(out))
+    kernels.check("mc_batch", err)
+    kernels.count("mc_batch")
+    return out

@@ -44,6 +44,12 @@ ENTRIES = {
     "inv_transform_batch": "transform_batch",
     "quant_batch": "quant_batch",
     "dequant_batch": "quant_batch",
+    "mc_batch": "mc_batch",
+    "full_search_sse": "full_search",
+    "sse_batch": "dist_batch",
+    "sad_batch": "dist_batch",
+    "satd_batch": "dist_batch",
+    "mode_costs": "mode_costs",
 }
 SOURCES = tuple(dict.fromkeys(ENTRIES.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,6 +8,8 @@ InterSearch::xTZSearch, InterSearch.h:506; ME_BS/ME_PAD/FrameMe mirror
 the JAX package's ops/me.py).
 
   frame_me -> K5, csrc/frame_me.cu; frame_me_ref is its plain version
+  full_search_sse_batch -> K9, csrc/full_search.cu (best_mv_batch = K9
+      and the first argmin); full_search_sse_batch_ref is its plain version
 
 Both compute every SSE exactly in integers: stage 1 in units of 1/16 on
 the 4x4 pooled *sums* (int64), stage 2 in int32.  The reference computes
@@ -16,6 +18,11 @@ is exact for stage 1's samples but not for its sums; the argmins agree
 except at a near tie of the reference's rounded costs.  Ties go to the
 lowest candidate index, as jnp.argmin does.  The returned cost is the
 float32 of the exact stage-2 SSE.
+
+full_search_sse_batch likewise computes every displacement's SSE exactly
+as an integer (int64) and returns its float32; the reference computes
+sum(a^2) + sum(b^2) - 2 corr(a, b) in float32, which cancels (ROADMAP.md
+section 3).
 """
 
 from __future__ import annotations
@@ -45,6 +52,88 @@ def full_search_sse_np(block: np.ndarray, area: np.ndarray) -> np.ndarray:
             d = area[dy:dy + h, dx:dx + w].astype(np.int64) - block
             out[dy, dx] = (d * d).sum()
     return out
+
+
+_FS_CHUNK = 1 << 24     # int64 samples of a plain-version step
+
+
+def _check_search(blocks, areas, h, w):
+    """(gh, gw) of the displacement grid after checking the shapes."""
+    if blocks.dim() != 3 or areas.dim() != 3 or \
+            blocks.shape[0] != areas.shape[0] or \
+            tuple(blocks.shape[1:]) != (h, w):
+        raise ValueError(f"blocks {tuple(blocks.shape)} / areas "
+                         f"{tuple(areas.shape)}: need [B, {h}, {w}] and "
+                         f"[B, {h} + 2R, {w} + 2R]")
+    gh, gw = areas.shape[1] - h + 1, areas.shape[2] - w + 1
+    if gh < 1 or gw < 1:
+        raise ValueError(f"areas {tuple(areas.shape)} smaller than the "
+                         f"{w}x{h} block")
+    return gh, gw
+
+
+def full_search_sse_batch_ref(blocks: torch.Tensor, areas: torch.Tensor,
+                              h: int, w: int) -> torch.Tensor:
+    """Plain PyTorch version of full_search_sse_batch: the exact int64 SSE
+    of every displacement (integer unfold, no convolution: cuDNN would
+    take TF32), a chunk of blocks at a time, as float32."""
+    gh, gw = _check_search(blocks, areas, h, w)
+    B = blocks.shape[0]
+    out = torch.empty((B, gh, gw), dtype=torch.float32, device=blocks.device)
+    step = max(1, _FS_CHUNK // (gw * h * w))
+    for b0 in range(0, B, step):
+        b1 = min(b0 + step, B)
+        a = areas[b0:b1].long()
+        blk = blocks[b0:b1].long()[:, None, :, :]
+        for dy in range(gh):
+            # [n, gw, h, w] windows of one row of displacements
+            win = a[:, dy:dy + h, :].unfold(2, w, 1).permute(0, 2, 1, 3)
+            d = win - blk
+            out[b0:b1, dy] = (d * d).sum(dim=(2, 3)).to(torch.float32)
+    return out
+
+
+_K9_ARGS = [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P]
+
+
+def full_search_sse_batch(blocks: torch.Tensor, areas: torch.Tensor, h: int,
+                          w: int) -> torch.Tensor:
+    """SSE over all integer displacements for a batch of blocks.
+
+    blocks: [B, h, w] int32; areas: [B, h+2R, w+2R] int32 -> costs [B,
+    2R+1, 2R+1] float32, each the exact integer SSE rounded once.  K9 on a
+    CUDA device, the plain version on the CPU."""
+    if blocks.device.type == "cpu" and areas.device.type == "cpu":
+        return full_search_sse_batch_ref(blocks, areas, h, w)
+    dev = blocks.device
+    if dev.type != "cuda":
+        raise ValueError(f"full_search_sse_batch: no kernel for {dev}")
+    kernels.require(blocks, "blocks", torch.int32, 3, dev)
+    kernels.require(areas, "areas", torch.int32, 3, dev)
+    gh, gw = _check_search(blocks, areas, h, w)
+    B = blocks.shape[0]
+    out = torch.empty((B, gh, gw), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    fn = kernels.function("full_search", "vt_full_search_sse", _K9_ARGS)
+    err = fn(blocks.data_ptr(), areas.data_ptr(), out.data_ptr(), B, h, w,
+             areas.shape[1], areas.shape[2], kernels.stream_ptr(out))
+    kernels.check("full_search", err)
+    kernels.count("full_search_sse")
+    return out
+
+
+def best_mv_batch(blocks, areas, h, w, lambda_mv=0.0, center_bias=None):
+    """Argmin over the displacement grid -> integer MVs relative to the
+    window top-left.  Returns (mv_y [B], mv_x [B], cost [B]); ties go to
+    the lowest index (torch.argmin returns the first minimum, as
+    jnp.argmin).  lambda_mv and center_bias are unused, as in the
+    reference."""
+    costs = full_search_sse_batch(blocks, areas, h, w)
+    bsz, gh, gw = costs.shape
+    flat = costs.reshape(bsz, -1)
+    idx = torch.argmin(flat, dim=1)
+    return idx // gw, idx % gw, torch.gather(flat, 1, idx[:, None])[:, 0]
 
 
 def _check_planes(src_pad, ref_pad, W, H, R):
