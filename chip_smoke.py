@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (vvenc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--json PATH]   # from the repository root, one card
+    python3 chip_smoke.py --only k3k4     # K1-K4 checks, times, resources
 
 Phases; any mismatch or error ends the run with a non-zero exit code:
 
@@ -24,6 +25,9 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      class and per picture (all classes into one buffer), the one fetch
      of the picture's costs apart (pinned and pageable), and a whole
      FramePresel (upload, launches, fetch).
+   - The resources of K3's and K4's kernels per class: registers, static
+     and dynamic shared memory, threads and resident blocks per SM (each
+     source's vt_*_attrs query).
    - K4's gathered entry (presel_costs, the reference's inputs) on the
      same picture and classes: bit-exact against the plain version and
      equal to the plane form; timed per class.
@@ -101,6 +105,7 @@ import numpy as np
 # arithmetic of these kernels
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+INT8_TC_OPS_PER_S = 1979e12     # dense int8 tensor-core peak
 COST_RTOL = 1e-5
 ME_COST_RTOL = 1e-6
 
@@ -265,10 +270,22 @@ def work(name: str, B: int, s: int, k: int) -> tuple:
             B * k * (4 * s * n * 2 + 20 * n))
 
 
+def plan_tc_bound_ms(B: int, s: int, k: int) -> float:
+    """K3's bound on the tensor cores (16x16 .. 64x64): the four s^3
+    multiply-add products per survivor, each as two int8 products (the
+    split data operand), 2 operations a multiply-add, at the 1,979 T/s
+    int8 peak."""
+    return B * k * 4 * s ** 3 * 2 * 2 / INT8_TC_OPS_PER_S * 1e3
+
+
 def presel_work(B: int, w: int, h: int, plane_bytes: int) -> tuple:
     """(bytes, int32 operations) of K4 on one class: reads the plane and
     the grid, writes [B, 67] int32; per prediction sample K1's 11 and
-    K2's 9 operations (no intermediate is written)."""
+    K2's 9 operations (no intermediate is written).  Counted against the
+    67 T/s float32 peak as in PR 2; Hopper issues 32-bit integer
+    multiply-adds at half that rate (64 lanes per SM per clock), so a
+    kernel on integer CUDA cores can approach this bound but not reach
+    it; PR 5's K4 runs its per-sample arithmetic on the float32 pipe."""
     return plane_bytes + B * 67 * 4, B * 67 * w * h * (11 + 9)
 
 
@@ -1233,48 +1250,51 @@ def encode(torch, tag, clip, w, h, frames, qp, preset, extra, plan=False):
     return enc, enc.encode_seconds
 
 
-def main(argv=None) -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--json", dest="json_path", default=None,
-                    help="also write the detailed numbers to this file")
-    json_path = ap.parse_args(argv).json_path
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run "
-              "needs an NVIDIA card", file=sys.stderr)
-        return 2
-    # phase 1
-    card = card_line()
-    print(card, flush=True)
-    dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}", flush=True)
-
-    # phase 2: kernels (parallel nvcc) and the native library (g++)
-    from vvenc_tpu_torch.ops import kernels
-    t0 = time.time()
-    built = {}
-    th = threading.Thread(target=lambda: built.update(kernels.build()))
-    th.start()
-    from vvenc_tpu_torch import capi_c, native
-    capi_c.build()
-    th.join()
-    t_build = time.time() - t0
-    if not native.available():
-        fail("the native library (native/entropy.cpp) did not build:\n"
-             f"{native.BUILD_ERROR}")
-    missing = [n for n in kernels.SOURCES if not kernels.so_path(n).exists()]
-    if missing:
-        fail(f"kernels not built: {missing}")
-    print(f"phase 2: built {len(kernels.SOURCES)} kernel sources, the "
-          f"native library and the C shim in {t_build:.1f} s", flush=True)
+def print_ptxas(built: dict) -> None:
+    """ptxas's register and spill lines of each kernel source built."""
     for n, log in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {n}: {line.strip()}")
 
+
+def write_json(json_path, report: dict) -> None:
+    if json_path:
+        path = pathlib.Path(json_path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(report, indent=1))
+
+
+def print_resources() -> dict:
+    """Prints and returns the resources of K3's and K4's kernels per class
+    (registers, shared memory, threads and resident blocks per SM, from
+    each source's vt_*_attrs query on this card)."""
+    from vvenc_tpu_torch.ops import intra_presel as S
+    from vvenc_tpu_torch.ops import kernels
+    from vvenc_tpu_torch.ops.tables import presel_mode_tables
+    out = {}
+    rows = [("plan_trial", "vt_plan_trial_attrs", (s, s))
+            for s in (4, 8, 16, 32, 64)]
+    rows += [(f"presel_costs{'_gathered' if g else ''}",
+              "vt_presel_costs_attrs",
+              (w, h, g, presel_mode_tables(w, h, 2 * w + 3, 2 * h + 3)["LM"]))
+             for (w, h) in S.shapes_for_config(128, 2)[0] for g in (0, 1)]
+    for name, symbol, args in rows:
+        src = KERNELS[name][0].split("/")[-1][:-3]
+        r = kernels.resources(src, symbol, *args)
+        out[f"{name} {args[0]}x{args[1]}"] = r
+        print(f"  resources {name} {args[0]}x{args[1]}: {r['registers']} "
+              f"registers, shared {r['static_smem']} + {r['dynamic_smem']} "
+              f"B, {r['threads']} threads, {r['blocks_per_sm']} blocks/SM, "
+              f"local {r['local_bytes']} B", flush=True)
+    return out
+
+
+def k3_k4_phase(torch, dev, report):
+    """Phase 3's K1-K3 (1080p at 8 and 10 bits, config 1's plan batch)
+    and K4 (both entries, a 1080p 10-bit picture and an 832x480 8-bit
+    crop) against their plain versions, timed per class, with the
+    resources of K3's and K4's kernels per class."""
     from vvenc_tpu_torch.encoder.intra_encoder import (EncoderConfig,
                                                        lambda_for_qp)
     from vvenc_tpu_torch.ops import intra_plan as P
@@ -1283,7 +1303,6 @@ def main(argv=None) -> int:
     # that plus 6 per bit above 8
     slice_qp = 37 + EncoderConfig.intra_qp_offset
     sizes = (4, 8, 16, 32, 64)
-    report = {"card": card, "kind": kind, "build_seconds": t_build}
 
     # phase 3: kernels against plain versions at 1080p, 8 and 10 bits
     W, H, F = 1920, 1080, 4
@@ -1304,6 +1323,12 @@ def main(argv=None) -> int:
             print(f"  class {r['s']:2d} B={r['B']:6d}: " + ", ".join(
                 f"{n} {r['ms'][n]:.3f} ms (plain {r['plain_ms'][n]:.3f}, "
                 f"bound {r['bound_ms'][n]:.3f})" for n in PLAN_KERNELS))
+        print(f"  K3 plan_trial class sum {bd}-bit: "
+              f"{sum(r['ms']['plan_trial'] for r in recs):.4f} ms (bound "
+              f"{sum(r['bound_ms']['plan_trial'] for r in recs):.4f}; the "
+              f"16..64 classes on the int8 tensor cores "
+              f"{sum(plan_tc_bound_ms(r['B'], r['s'], k) for r in recs if r['s'] >= 16):.4f})",
+              flush=True)
         report["phase3"].append({"bit_depth": bd, "flips": flips,
                                  "classes": recs})
 
@@ -1317,7 +1342,13 @@ def main(argv=None) -> int:
     crecs, ckern, cplain = run_classes(
         torch, dev, csrcs, cbd, slice_qp + 6 * (cbd - 8), clmbda, csizes,
         True, k, reps=50, plain_reps=5, check=True)
-    compare_plans(csizes, cw, ch, [clmbda] * cf, ckern, cplain)
+    cflips = compare_plans(csizes, cw, ch, [clmbda] * cf, ckern, cplain)
+    print(f"phase 3: config 1's plan batch ({cf} x {cw}x{ch}, {cbd}-bit): "
+          f"K1-K3 as at 1080p, {cflips} near-tie flips; " + ", ".join(
+              f"{n} {sum(r['ms'][n] for r in crecs):.4f} ms" for n in
+              PLAN_KERNELS) + "; per class " + ", ".join(
+              f"{r['s']}: {r['ms']['plan_trial']:.4f}" for r in crecs),
+          flush=True)
     report["config1_batch"] = crecs
 
     # phase 3, K4: one 1080p 10-bit picture, every MTT class (the medium
@@ -1349,6 +1380,69 @@ def main(argv=None) -> int:
               f"{r['ms']:.3f} ms (gathered {r['gathered_ms']:.3f}, plain "
               f"{r['plain_ms']:.3f}, bound {bound_ms(*r['work'])[0]:.3f})")
     report["presel"] = {"classes": precs, "picture": ppic}
+
+    report["resources"] = print_resources()
+    return pic10, crecs, precs, (pms, pbound, pby), (gms, gbound, gby)
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--json", dest="json_path", default=None,
+                    help="also write the detailed numbers to this file")
+    ap.add_argument("--only", choices=("k3k4",), default=None,
+                    help="k3k4: build K1-K4 only and run phase 3's K1-K4 "
+                    "checks, timings and resource lines, then stop (no "
+                    "result line)")
+    args = ap.parse_args(argv)
+    json_path = args.json_path
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    # phase 1
+    card = card_line()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    # phase 2: kernels (parallel nvcc) and the native library (g++)
+    from vvenc_tpu_torch.ops import kernels
+    t0 = time.time()
+    if args.only:
+        built = kernels.build(("intra_pred_all", "satd_modes", "plan_trial",
+                               "presel_costs"))
+        print(f"phase 2: built K1-K4 in {time.time() - t0:.1f} s", flush=True)
+        print_ptxas(built)
+        report = {"card": card, "kind": kind}
+        k3_k4_phase(torch, dev, report)
+        write_json(json_path, report)
+        print(card)
+        return 0
+    built = {}
+    th = threading.Thread(target=lambda: built.update(kernels.build()))
+    th.start()
+    from vvenc_tpu_torch import capi_c, native
+    capi_c.build()
+    th.join()
+    t_build = time.time() - t0
+    if not native.available():
+        fail("the native library (native/entropy.cpp) did not build:\n"
+             f"{native.BUILD_ERROR}")
+    missing = [n for n in kernels.SOURCES if not kernels.so_path(n).exists()]
+    if missing:
+        fail(f"kernels not built: {missing}")
+    print(f"phase 2: built {len(kernels.SOURCES)} kernel sources, the "
+          f"native library and the C shim in {t_build:.1f} s", flush=True)
+    print_ptxas(built)
+
+    report = {"card": card, "kind": kind, "build_seconds": t_build}
+    pic10, crecs, precs, (pms, pbound, pby), (gms, gbound, gby) = \
+        k3_k4_phase(torch, dev, report)
+    W, H = 1920, 1080
 
     # phase 3, K5: two 1080p pictures at R = 64 (config 3's shape)
     me = run_me(torch, dev, luma_frames(W, H, 2, 10, seed=41), 64, reps=20,
@@ -1489,10 +1583,7 @@ def main(argv=None) -> int:
                         "bound_ms": bms, "bound_by": by,
                         "library_ms": None})
     report["kernels"] = entries
-    if json_path:
-        path = pathlib.Path(json_path)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(json.dumps(report, indent=1))
+    write_json(json_path, report)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,312 @@
+"""The exactness arguments of the kernels redesigned for the H100 (K3
+plan_trial, K4 presel_costs), held in numpy against integer arithmetic
+and the port's plain versions.
+
+K4 runs its per-sample arithmetic on the float32 pipe: every value is an
+integer below 2^24, and each (x + 32) >> 6 is one fused multiply-add of
+x + 0.5 by 1/64 onto 1.5 * 2^23, which rounds to the floor because the
+argument is never a half-integer.  _k4_model repeats the kernel's data
+flow (the per-mode pool-position lists of ops/tables.presel_mode_tables,
+the rows' windows, PDPC, the float rounding, the Hadamard butterflies in
+the kernel's order) with numpy: a float64 value that is exact, cast to
+float32, is the fused multiply-add's single rounding.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vvenc_tpu_torch.ops import intra_presel as S
+from vvenc_tpu_torch.ops.intra_vec import _shape_tables
+from vvenc_tpu_torch.ops.tables import (FLAG_ANG0, FLAG_PDPC, FLAG_VER,
+                                        presel_mode_tables)
+
+MAGIC = np.float32(1.5 * 2 ** 23)
+MTT_SHAPES = S.shapes_for_config(128, 2)[0]
+
+
+def _fma_magic(x):
+    """The kernel's __fmaf_rn(x, 1/64, 1.5 * 2^23): exact in float64,
+    rounded once to float32."""
+    return (np.asarray(x, np.float64) / 64.0 + float(MAGIC)).astype(
+        np.float32)
+
+
+def _wht_rows(d):
+    """Natural-order Hadamard along the last axis, the kernel's butterfly
+    order, in float32 (exact: every partial sum is an integer < 2^24)."""
+    d = d.copy()
+    T = d.shape[-1]
+    ln = 1
+    while ln < T:
+        for i in range(0, T, 2 * ln):
+            for j in range(i, i + ln):
+                a, c = d[..., j].copy(), d[..., j + ln].copy()
+                d[..., j] = a + c
+                d[..., j + ln] = a - c
+        ln <<= 1
+    return d
+
+
+def _k4_model(blocks, tops, lefts, w, h, bd):
+    """K4's arithmetic on the reference's inputs (blocks [B, h, w], tops
+    [B, >=2w+3], lefts [B, >=2h+3], int32) -> costs [B, 67] int32."""
+    lpad = _shape_tables(w, h, True, 0).LPAD
+    nA, nL = min(tops.shape[1], lpad), min(lefts.shape[1], lpad)
+    tab = presel_mode_tables(w, h, nA, nL)
+    top, left = tops[:, :nA].astype(np.int64), lefts[:, :nL].astype(np.int64)
+    B = len(blocks)
+    corner = (top[:, 0] + top[:, 1] + left[:, 0] + left[:, 1] + 2) >> 2
+
+    def filt(r, n):
+        f = r.copy()
+        f[:, 1:n] = (r[:, :n - 1] + 2 * r[:, 1:n] + r[:, 2:n + 1] + 2) >> 2
+        f[:, 0] = corner
+        f[:, n:] = r[:, n:n + 1]
+        return f
+    pool_i = np.concatenate([top, filt(top, 2 * w), left, filt(left, 2 * h)],
+                            axis=1).astype(np.int16).astype(np.int64)
+    pool = pool_i.astype(np.float32)
+    srcm = blocks.astype(np.int16).astype(np.float32) + MAGIC
+    maxval = (1 << bd) - 1
+    vmax = MAGIC + np.float32(maxval)
+    T = 8 if (w % 8 == 0 and h % 8 == 0) else 4
+    preds = np.zeros((B, 67, h, w), np.float32)      # magic domain
+    for m in range(65):
+        flags, SB, TL, n = tab["minfo"][m]
+        ver = bool(flags & FLAG_VER)
+        rows, cols = (h, w) if ver else (w, h)
+        vals = pool[:, tab["gidx"][m, :n]]
+        tl = vals[:, TL] if flags & FLAG_ANG0 else None
+        for r in range(rows):
+            f = tab["taps"][m, r]
+            c = np.arange(cols)
+            win = vals[:, tab["rs"][m, r] + c[:, None] + np.arange(4)]
+            acc = 0.5 + win[..., 0] * f[0]
+            for k in (1, 2, 3):
+                acc = acc + win[..., k] * f[k]
+            y = np.minimum(np.maximum(_fma_magic(acc), MAGIC), vmax)
+            if flags & FLAG_PDPC:
+                for x in range(min(cols, len(tab["wl"][m]))):
+                    wl = tab["wl"][m, x]
+                    if wl == 0:
+                        continue
+                    lval = vals[:, SB + r + tab["soff"][m, x]]
+                    v = y[:, x] - MAGIC
+                    base = (lval - tl) if tl is not None else (lval - v)
+                    q = _fma_magic(base * wl + 0.5) - MAGIC
+                    y[:, x] = np.minimum(np.maximum(v + q + MAGIC, MAGIC),
+                                         vmax)
+            if ver:
+                preds[:, m + 2, r, :] = y
+            else:
+                preds[:, m + 2, :, r] = y
+    # planar and DC, in integers as the kernel computes them
+    ref = S.predict_all_modes_ref(torch.from_numpy(tops),
+                                  torch.from_numpy(lefts), w, h, bd).numpy()
+    preds[:, :2] = ref[:, :2].astype(np.float32) + MAGIC
+    d = srcm[:, None] - preds                         # [B, 67, h, w]
+    d = d.reshape(B, 67, h // T, T, w // T, T).transpose(0, 1, 2, 4, 3, 5)
+    d = _wht_rows(d)                                  # rows
+    d = np.swapaxes(_wht_rows(np.swapaxes(d, -1, -2)), -1, -2)  # columns
+    s = np.abs(d).sum(axis=(-1, -2), dtype=np.float32).astype(np.int64)
+    if T == 8:
+        val = (s + 2) >> 2
+    else:
+        dct = np.abs(d[..., 0, 0]).astype(np.int64)
+        val = ((s - dct + (dct >> 2)) + 1) >> 1
+    return val.sum(axis=(2, 3)).astype(np.int32)
+
+
+def _inputs(rng, B, w, h, bd, kind):
+    top = (1 << bd) - 1
+    L = _shape_tables(w, h, True, 0).LPAD
+    if kind == "checker":
+        # 0 / max checkerboards drive every residual to its extreme
+        yy, xx = np.mgrid[:h, :w]
+        blocks = np.where((yy + xx) % 2 == 0, top, 0)[None].repeat(B, 0)
+        blocks[1::2] = top - blocks[1::2]
+        tops = np.where(np.arange(L) % 2 == 0, 0, top)[None].repeat(B, 0)
+        lefts = np.where(np.arange(L) % 2 == 0, top, 0)[None].repeat(B, 0)
+        tops[::3] = top - tops[::3]
+    else:
+        blocks = rng.randint(0, top + 1, (B, h, w))
+        tops = rng.randint(0, top + 1, (B, 2 * w + 3))
+        lefts = rng.randint(0, top + 1, (B, 2 * h + 3))
+        tops[0], lefts[0] = top, top
+        tops[1], lefts[1] = 0, 0
+    return (np.ascontiguousarray(blocks, np.int32),
+            np.ascontiguousarray(tops, np.int32),
+            np.ascontiguousarray(lefts, np.int32))
+
+
+@pytest.mark.parametrize("kind", ["random", "checker"])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("w,h", MTT_SHAPES)
+def test_k4_float_algebra_equals_the_plain_version(w, h, bd, kind):
+    """K4's float32 data flow gives presel_costs_ref's integer costs, on
+    random samples and on 0 / max checkerboards, every MTT class (the
+    references 2w+3 / 2h+3 wide, so the rectangular misreads and the
+    clamp past the pool's end are covered)."""
+    rng = np.random.RandomState(w * 97 + h * 5 + bd)
+    B = 6 if w * h >= 1024 else 11
+    blocks, tops, lefts = _inputs(rng, B, w, h, bd, kind)
+    want = S.presel_costs_ref(torch.from_numpy(blocks),
+                              torch.from_numpy(tops),
+                              torch.from_numpy(lefts), w, h, bd).numpy()
+    np.testing.assert_array_equal(_k4_model(blocks, tops, lefts, w, h, bd),
+                                  want)
+
+
+def test_k4_shift_by_fma_onto_the_magic_number_is_the_floor():
+    """(x + 32) >> 6 == rint((x + 0.5) / 64) through 1.5 * 2^23, for every
+    x the 4-tap sums and the PDPC products can reach (|x| < 2^18), and the
+    residual's float32 difference is exact."""
+    x = np.arange(-(1 << 18), 1 << 18, dtype=np.int64)
+    got = _fma_magic(x + 0.5).astype(np.float64) - float(MAGIC)
+    np.testing.assert_array_equal(got.astype(np.int64), (x + 32) >> 6)
+    v = np.arange(0, 1 << 12, dtype=np.float32) + MAGIC
+    assert np.array_equal((MAGIC + np.float32(1023)) - v,
+                          (1023 - np.arange(1 << 12)).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# K3: the int8 tensor-core products of the 16x16 .. 64x64 trials
+# ---------------------------------------------------------------------------
+
+def _split(x):
+    """x (int, in [-2^15, 2^15)) -> (hi s8, lo u8) with x = 256 hi + lo,
+    the kernel's byte planes."""
+    x = np.asarray(x, np.int64)
+    hi, lo = x >> 8, x & 255
+    assert hi.min() >= -128 and hi.max() <= 127
+    assert lo.min() >= 0 and lo.max() <= 255
+    return hi.astype(np.int8), lo.astype(np.uint8)
+
+
+def _split_product(T, X):
+    """T @ X as the kernel computes it: int8 x int8 and int8 x uint8
+    products accumulated in int32, recombined as 256 * hi + lo in int32;
+    asserts every partial sum stays inside int32."""
+    hi, lo = _split(X)
+    T8 = np.asarray(T, np.int64)
+    assert T8.min() >= -128 and T8.max() <= 127
+    ph = T8 @ hi.astype(np.int64)
+    pl = T8 @ lo.astype(np.int64)
+    for a in (ph, pl, 256 * ph, 256 * ph + pl):
+        assert np.abs(a).max() < 2 ** 31
+    return (256 * ph + pl).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,tt", [(n, "DCT2") for n in (4, 8, 16, 32, 64)]
+                         + [(n, "DST7") for n in (4, 8, 16, 32)])
+def test_k3_int8_split_products_equal_int64_at_the_extremes(n, tt):
+    """Every transform size's matrix (ops/transforms.tr_matrix) times
+    operands at the extremes the trial reaches: residuals +-(2^bd - 1) at
+    8 and 10 bits, clipped stage results and dequantised levels -2^15 and
+    2^15 - 1, signs chosen to maximise each output; equal to int64."""
+    from vvenc_tpu_torch.ops import transforms as TR
+    T = TR.tr_matrix(n, getattr(TR, tt)).astype(np.int64)
+    assert np.abs(T).max() <= 91
+    rng = np.random.RandomState(n)
+    sign = np.where(T >= 0, 1, -1)                 # worst case per row
+    for lo_v, hi_v in (((1 << 8) - 1,) * 2, ((1 << 10) - 1,) * 2,
+                       (1 << 15, (1 << 15) - 1)):
+        cols = [np.where(sign[u] > 0, hi_v, -lo_v) for u in range(n)]
+        X = np.stack(cols, axis=1)                 # [n, n]: column u
+        X = np.concatenate([X, rng.randint(-lo_v, hi_v + 1, (n, 5)),
+                            np.full((n, 1), -lo_v), np.full((n, 1), hi_v)],
+                           axis=1)
+        got = _split_product(T, X)
+        np.testing.assert_array_equal(got, T @ X.astype(np.int64))
+
+
+def _k3_model(src, preds, satd, lm, ls, s, qp, bd, k):
+    """K3's tensor-core route in numpy: the ranking by (score, mode), the
+    four products through _split_product, the kernel's epilogues ->
+    (modes [B, k] int32, costs [B, k] float32)."""
+    from vvenc_tpu_torch.ops import intra_plan as P
+    from vvenc_tpu_torch.ops.transforms import tr_matrix
+    p = P._trial_params(s, s, qp, bd, True)
+    tw = tr_matrix(s, p["trh"]).astype(np.int64)
+    th = tr_matrix(s, p["trv"]).astype(np.int64)
+    mb = P._MODE_BITS
+    lo_c, hi_c = -(1 << 15), (1 << 15) - 1
+
+    def rs(v, n):
+        return np.clip((v.astype(np.int64) + (1 << (n - 1))) >> n, lo_c,
+                       hi_c)
+    B = len(src)
+    modes = np.zeros((B, k), np.int32)
+    costs = np.zeros((B, k), np.float32)
+    for b in range(B):
+        score = (satd[b].astype(np.float32)
+                 + (mb * np.float32(ls[b])).astype(np.float32))
+        top = np.argsort(score, kind="stable")[:k]
+        for i, m in enumerate(top):
+            pred = preds[b, m].astype(np.int64)
+            r = src[b].astype(np.int64) - pred
+            a = rs(_split_product(tw, r.T).T, p["shift1"])     # [y][u]
+            c = rs(_split_product(th, a), p["shift2"])          # [v][u]
+            if s > 32:
+                c[32:, :] = 0
+                c[:, 32:] = 0
+            q = quant_model(c, p)
+            d = np.clip(dequant_model(q, p), lo_c, hi_c)
+            a2 = rs(_split_product(th.T, d), 7)                # [y][u]
+            r2 = rs(_split_product(tw.T, a2.T).T, p["ishift2"])  # [y][x]
+            rec = np.clip(pred + r2, 0, p["maxval"])
+            sse = float(((src[b] - rec) ** 2).sum())
+            nnz = float((q != 0).sum())
+            slog = np.float32(np.log2(1.0 + np.abs(q).astype(np.float32))
+                              .astype(np.float32).sum(dtype=np.float32))
+            bits = (np.float32(P.RATE_C0) + np.float32(P.RATE_C1) * nnz
+                    + np.float32(P.RATE_C2) * slog) if nnz > 0 else 1.0
+            modes[b, i] = m
+            costs[b, i] = np.float32(sse) + np.float32(lm[b]) * np.float32(
+                np.float32(bits) + mb[m])
+    return modes, costs
+
+
+def quant_model(c, p):
+    """|c| * scale + add >> qbits in wrapping int32, with c's sign."""
+    a = np.abs(c).astype(np.uint32)
+    mag = ((a * np.uint32(p["qscale"]) + np.uint32(p["qadd"]))
+           .astype(np.int32) >> p["qbits"]).astype(np.int64)
+    return np.sign(c) * mag
+
+
+def dequant_model(q, p):
+    qc = np.clip(q, -(1 << 15), (1 << 15) - 1)
+    if p["dshift"] > 0:
+        return (qc * p["dscale"] + (1 << (p["dshift"] - 1))) >> p["dshift"]
+    return (qc * p["dscale"]) << (-p["dshift"])
+
+
+@pytest.mark.parametrize("qp", [0, 22, 51])
+@pytest.mark.parametrize("s", [16, 32, 64])
+def test_k3_tensor_core_route_equals_the_plain_version(s, qp):
+    """The split-int8 data flow gives plan_trial_ref's modes and its costs
+    within rtol 1e-5, on residuals at their extremes (0 / max sources
+    against max / 0 predictions) and at QP 0 and 51; ties (all-equal
+    SATD rows) go to the lowest mode."""
+    from vvenc_tpu_torch.ops import intra_plan as P
+    bd, k, B, M = 10, 2, 3, 67
+    rng = np.random.RandomState(s + qp)
+    top = (1 << bd) - 1
+    src = rng.randint(0, top + 1, (B, s, s)).astype(np.int32)
+    src[0] = np.where(np.indices((s, s)).sum(0) % 2 == 0, top, 0)
+    preds = rng.randint(0, top + 1, (B, M, s, s)).astype(np.int16)
+    preds[0] = (top - src[0])[None].astype(np.int16)
+    satd = rng.randint(0, 5000, (B, M)).astype(np.int32)
+    satd[1] = 1234                                   # ties
+    lm = rng.uniform(10, 100, B).astype(np.float32)
+    ls = np.sqrt(lm).astype(np.float32)
+    slice_qp = qp
+    mk, ck = _k3_model(src, preds, satd, lm, ls, s, slice_qp, bd, k)
+    mr, cr = P.plan_trial_ref(torch.from_numpy(src), torch.from_numpy(preds),
+                              torch.from_numpy(satd), torch.from_numpy(lm),
+                              torch.from_numpy(ls), s, s, slice_qp, bd, True,
+                              k)
+    np.testing.assert_array_equal(mk, mr.numpy())
+    np.testing.assert_allclose(ck, cr.numpy(), rtol=1e-5, atol=0)

@@ -364,3 +364,77 @@ def test_mode_costs_matches_plain(cuda, s, bd):
     torch.cuda.synchronize()
     assert kernels.launches["mode_costs"] == c0 + 1
     assert torch.equal(got, want)
+
+
+def _checker_plane(W, H, bd, pad):
+    """A 0 / max checkerboard, edge-padded: every residual at its
+    extreme."""
+    yy, xx = np.mgrid[:H, :W]
+    src = np.where((yy + xx) % 2 == 0, (1 << bd) - 1, 0).astype(np.int32)
+    return torch.from_numpy(np.pad(src, pad, mode="edge").astype(np.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "single", "checker"])
+@pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (64, 64), (4, 16),
+                                 (32, 8), (8, 64)])
+def test_presel_costs_groups_and_extremes(cuda, w, h, case):
+    """K4's two entries bit-exact against presel_costs_ref on a last
+    candidate group that is not full (the class grid of a 136x72 plane,
+    and a batch of 37), on a single candidate, and on a 0 / max
+    checkerboard at 10 bits."""
+    bd, pad = 10, S.FramePresel.PAD
+    rng = np.random.RandomState(w * 7 + h)
+    W, H = 136, 72
+    plane = (_checker_plane(W, H, bd, pad) if case == "checker"
+             else _plane(rng, W, H, bd, pad)).to(cuda)
+    xs, ys, _, _ = S._class_grid(W, H, w, h, True)
+    if case == "single":                       # the last grid position
+        xs, ys = xs[-1:], ys[-1:]
+    xs_d = torch.from_numpy(xs).to(cuda)
+    ys_d = torch.from_numpy(ys).to(cuda)
+    inputs = S.plane_inputs(plane, pad, xs, ys, w, h)
+    want = S.presel_costs_ref(*inputs, w, h, bd)
+    n = dict(kernels.launches)
+    got_plane = S.presel_costs_plane(plane, pad, xs_d, ys_d, w, h, bd)
+    got_gathered = S.presel_costs(*inputs, w, h, bd)
+    torch.cuda.synchronize()
+    assert kernels.launches["presel_costs"] == n["presel_costs"] + 1
+    assert kernels.launches["presel_costs_gathered"] == \
+        n["presel_costs_gathered"] + 1
+    assert torch.equal(got_plane, want) and torch.equal(got_gathered, want)
+    if case == "ragged":
+        sub = [x[:37] for x in inputs]
+        assert torch.equal(S.presel_costs(*sub, w, h, bd), want[:37])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [0, 51])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (32, 32),
+                                 (64, 64), (16, 8)])
+def test_plan_trial_ties_top_k_and_qp_extremes(cuda, w, h, k, qp):
+    """K3's modes equal plan_trial_ref's and its costs are within rtol 1e-5
+    for k = 1, 2, 3 at QP 0 and 51: rows of equal SATD (ties go to the
+    lowest mode), residuals at their extremes, the 64-point zero-out, and
+    a rectangular class (the warp route)."""
+    rng = np.random.RandomState(w * 3 + h + k + qp)
+    B, M, bd = 23, 67, 10
+    top = (1 << bd) - 1
+    src = rng.randint(0, top + 1, (B, h, w)).astype(np.int32)
+    src[0] = np.where(np.indices((h, w)).sum(0) % 2 == 0, top, 0)
+    preds = rng.randint(0, top + 1, (B, M, h, w)).astype(np.int16)
+    preds[0] = (top - src[0])[None].astype(np.int16)
+    satd = rng.randint(0, 4000, (B, M)).astype(np.int32)
+    satd[1] = 777
+    satd[2, ::3] = 5
+    lm = rng.uniform(10, 100, B).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (src, preds, satd, lm, np.sqrt(lm).astype(np.float32))]
+    n = kernels.launches["plan_trial"]
+    mk, ck = P.plan_trial(*args, w, h, qp, bd, True, k)
+    mr, cr = P.plan_trial_ref(*args, w, h, qp, bd, True, k)
+    torch.cuda.synchronize()
+    assert kernels.launches["plan_trial"] == n + 1
+    assert torch.equal(mk, mr)
+    torch.testing.assert_close(ck, cr, rtol=1e-5, atol=0)

@@ -16,24 +16,43 @@
 // exactly in integers and converted once; the log2 sum is an f32 sum in
 // another order than XLA's (the tests allow rtol 1e-5 on costs).
 //
-// Bound: integer operations.  A survivor costs four small matrix products
-// of s^3 multiply-adds each (about 8*s^3 MACs per block for k = 2), read
-// from 67*s*s*2 bytes of predictions of which only k planes are touched.
-// Design: one thread block per candidate block, its k trials in turn;
-// the source block, the survivor's prediction, two work planes and both
-// transform matrices (64x64 int32 = 16 KB) stay in shared memory for the
-// whole trial, each thread computes whole dot products of one output
-// sample per stage, and the per-block sums are warp-shuffle reductions.
-// (One block per survivor, each ranking the modes itself, measured
-// slower on the H100: the repeated ranking and staging dominate blocks of
-// 4x4 to 16x16.)  No tensor cores: the products are exact int32 and the
-// factors exceed int8.
+// What bounds it on the H100: a survivor costs four s x s x s matrix
+// products (8 s^3 multiply-adds a block for k = 2) against 67 * 4 bytes
+// of SATD, s * s * 4 of source and k * s * s * 2 of predictions read:
+// operations, at 1.6e8 integer multiply-adds per 1080p frame of 64x64
+// blocks.  PR 1's kernel ran one block of up to 256 threads per candidate
+// (32 threads, 16 busy, at 4x4), ranked the modes on one thread, read the
+// row transform at a stride of w ints (32-way bank conflicts at w >= 32)
+// and held 98 KB of shared memory at 64x64 (two blocks per SM).
+//
+// Design (PR 5):
+// - the ranking is a warp argmin over (score, mode) keys, the lowest
+//   index on ties, k times (three modes a lane);
+// - 16x16, 32x32, 64x64: one block per candidate, the four products on
+//   the tensor cores (mma.sync m16n8k32, int8 in, int32 accumulators).
+//   The transform matrices (|T| <= 91) are s8.  The data operand of each
+//   product (the residual, |r| < 2^bd; the clipped stage results and
+//   dequantised levels, in [-2^15, 2^15)) is split into a signed high
+//   byte and an unsigned low byte, x = 256 * hi + lo, and the two
+//   products recombined in int32: 256 * sum(T * hi) + sum(T * lo) is
+//   sum(T * x) exactly, every partial sum inside int32 (|256 * sum(T *
+//   hi)| <= 256 * 64 * 91 * 128 = 1.9e8); tests/test_torch_exact_split.py
+//   holds this against int64 products at the extremes.  Operands live
+//   in shared memory as byte planes with the contraction index
+//   contiguous and a row stride of 4 (mod 8) words, so every fragment
+//   load is conflict-free; each product's epilogue writes the next
+//   product's operand (transposed where the next contraction needs it).  The next survivor's
+//   prediction is in flight by cp.async while the current one runs;
+// - every other shape (4x4, 8x8, the rectangular ones no encoder path
+//   uses): one warp per candidate, eight to a block, the products on
+//   the CUDA cores from per-warp planes at odd strides with the
+//   transposed matrices, KC = 32 / (w h) survivors side by side.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxThreads = 256;
 constexpr int kModes = 67;
 constexpr int kCoeffMin = -(1 << 15), kCoeffMax = (1 << 15) - 1;
 
@@ -42,6 +61,20 @@ struct TrialParams {
   int shift1, shift2, ishift2;
   int qbits, qscale, qadd, dshift, dscale, maxval;
   float c0, c1, c2;
+};
+
+struct Inputs {
+  const int* src;
+  const int16_t* preds;
+  const int* satd;
+  const float* lmbda;
+  const float* lmbda_sad;
+  const float* mode_bits;
+  const int* tw;
+  const int* th;
+  int* modes;
+  float* costs;
+  int B;
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -53,120 +86,320 @@ __device__ __forceinline__ int round_shift(int v, int s) {
 }
 
 template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+__device__ __forceinline__ T warp_sum(T v, int width = 32) {
+  for (int o = width >> 1; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-__global__ void __launch_bounds__(kMaxThreads) plan_trial_kernel(
-    const int* __restrict__ src, const int16_t* __restrict__ preds,
-    const int* __restrict__ satd, const float* __restrict__ lmbda,
-    const float* __restrict__ lmbda_sad, const float* __restrict__ mode_bits,
-    const int* __restrict__ tw_g, const int* __restrict__ th_g,
-    int* __restrict__ modes_out, float* __restrict__ costs_out,
-    TrialParams p) {
-  extern __shared__ int smem[];
-  const int w = p.w, h = p.h, hw = w * h;
-  int* s_src = smem;            // [h][w] source
-  int* s_pred = s_src + hw;     // [h][w] survivor's prediction
-  int* s_a = s_pred + hw;       // [h][w] stage 1 of each transform
-  int* s_b = s_a + hw;          // [h][w] dequantised coefficients
-  int* s_tw = s_b + hw;         // [w][w] row transform, tw[u][x]
-  int* s_th = s_tw + w * w;     // [h][h] column transform, th[v][y]
-  __shared__ float s_score[kModes];
-  __shared__ int s_top[kModes];
-  __shared__ long long s_sse[kMaxThreads / 32];
-  __shared__ int s_nnz[kMaxThreads / 32];
-  __shared__ float s_slog[kMaxThreads / 32];
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
-  const float lsad = lmbda_sad[b];
-  for (int i = tid; i < p.M; i += nt)
-    s_score[i] = __fadd_rn((float)satd[(size_t)b * p.M + i],
-                           __fmul_rn(mode_bits[i], lsad));
-  for (int i = tid; i < hw; i += nt) s_src[i] = src[(size_t)b * hw + i];
-  for (int i = tid; i < w * w; i += nt) s_tw[i] = tw_g[i];
-  for (int i = tid; i < h * h; i += nt) s_th[i] = th_g[i];
-  __syncthreads();
-  if (tid == 0) {
-    // k smallest scores; a strict < while scanning upwards keeps the
-    // lowest mode index among equal scores first
-    unsigned long long taken[2] = {0ull, 0ull};
-    for (int i = 0; i < p.k; ++i) {
-      int best = -1;
-      for (int m = 0; m < p.M; ++m) {
-        if ((taken[m >> 6] >> (m & 63)) & 1ull) continue;
-        if (best < 0 || s_score[m] < s_score[best]) best = m;
+// the k lowest (score, mode) keys of candidate b by its warp: scores
+// satd + mode_bits * lambda_sad (f32, that order), ties to the lowest
+// mode; top[0..k) in shared memory
+__device__ void rank_modes(const Inputs& in, const TrialParams& p, int b,
+                           int* top) {
+  const int lane = threadIdx.x & 31;
+  const float lsad = in.lmbda_sad[b];
+  float sc[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int m = lane + 32 * j;
+    sc[j] = m < p.M ? __fadd_rn((float)in.satd[(size_t)b * p.M + m],
+                                __fmul_rn(in.mode_bits[m], lsad))
+                    : INFINITY;
+  }
+  unsigned taken = 0;
+  for (int i = 0; i < p.k; ++i) {
+    float bs = INFINITY;
+    int bm = 0x7fffffff;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int m = lane + 32 * j;
+      if (m < p.M && !((taken >> j) & 1u) &&
+          (sc[j] < bs || (sc[j] == bs && m < bm))) {
+        bs = sc[j];
+        bm = m;
       }
-      taken[best >> 6] |= 1ull << (best & 63);
-      s_top[i] = best;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float os = __shfl_xor_sync(0xffffffffu, bs, o);
+      const int om = __shfl_xor_sync(0xffffffffu, bm, o);
+      if (os < bs || (os == bs && om < bm)) {
+        bs = os;
+        bm = om;
+      }
+    }
+    if ((bm & 31) == lane) taken |= 1u << (bm >> 5);
+    if (lane == 0) top[i] = bm;
+  }
+}
+
+// |c| * scale + add >> qbits in wrapping int32 (the reference's), the
+// level's statistics, and the dequantised, clipped coefficient
+__device__ __forceinline__ int quant_dequant(const TrialParams& p, int c,
+                                             int& nnz, float& slog) {
+  const int a = abs(c);
+  const int mag =
+      (int)((unsigned)a * (unsigned)p.qscale + (unsigned)p.qadd) >> p.qbits;
+  const int q = c > 0 ? mag : (c < 0 ? -mag : 0);
+  nnz += q != 0;
+  slog = __fadd_rn(slog, log2f(__fadd_rn(1.0f, (float)mag)));
+  const int qc = clampi(q, -(1 << 15), (1 << 15) - 1);
+  const int d = p.dshift > 0
+                    ? (qc * p.dscale + (1 << (p.dshift - 1))) >> p.dshift
+                    : (qc * p.dscale) << (-p.dshift);
+  return clampi(d, kCoeffMin, kCoeffMax);
+}
+
+// cost = sse + lambda * (bits + mode_bits[mode]) from a survivor's sums
+__device__ __forceinline__ float trial_cost(const TrialParams& p,
+                                            long long sse, int nnz,
+                                            float slog, float lm, float mb) {
+  const float bits =
+      nnz > 0 ? __fadd_rn(__fadd_rn(p.c0, __fmul_rn(p.c1, (float)nnz)),
+                          __fmul_rn(p.c2, slog))
+              : 1.0f;
+  return __fadd_rn((float)sse, __fmul_rn(lm, __fadd_rn(bits, mb)));
+}
+
+// ---------------------------------------------------------------------
+// 16x16 .. 64x64 on the tensor cores
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_ss(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_us(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_su(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// byte planes of S rows, the contraction index contiguous, KP bytes of it
+// (S, or 32 zero-padded at 16) in a row of RW words, RW = 4 (mod 8): a
+// fragment's 8 rows x 4 words fall on 32 distinct banks
+template <int S>
+struct TcGeom {
+  static constexpr int KP = S < 32 ? 32 : S;
+  static constexpr int RW = KP / 4 + 4;
+  static constexpr int PLANE = S * RW;            // words
+  static constexpr int THREADS = S == 16 ? 64 : 256;
+  static constexpr int NT = S / 8;                // n tiles (8 wide)
+  static constexpr int TILES = (S / 16) * NT;     // m tiles (16 high) x n
+};
+
+// the m16n8 tile (m0, n0) of A * B^T over the contraction: A and B are
+// byte planes ([m][k], [n][k]); the data operand (hi s8, lo u8) is A
+// (DATA_A) or B, the matrix operand s8.  Returns 256 * hi + lo in c.
+template <int S, bool DATA_A>
+__device__ __forceinline__ void tile_product(const uint32_t* A_hi,
+                                             const uint32_t* A_lo,
+                                             const uint32_t* B_hi,
+                                             const uint32_t* B_lo, int m0,
+                                             int n0, int* c) {
+  using G = TcGeom<S>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int hi[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int kb = 0; kb < G::KP / 32; ++kb) {
+    const int ra = (m0 + g) * G::RW + kb * 8 + t;
+    const int rb = (n0 + g) * G::RW + kb * 8 + t;
+    uint32_t ah[4], bh[2];
+    ah[0] = A_hi[ra];
+    ah[1] = A_hi[ra + 8 * G::RW];
+    ah[2] = A_hi[ra + 4];
+    ah[3] = A_hi[ra + 8 * G::RW + 4];
+    bh[0] = B_hi[rb];
+    bh[1] = B_hi[rb + 4];
+    if (DATA_A) {
+      uint32_t al[4];
+      al[0] = A_lo[ra];
+      al[1] = A_lo[ra + 8 * G::RW];
+      al[2] = A_lo[ra + 4];
+      al[3] = A_lo[ra + 8 * G::RW + 4];
+      mma_ss(hi, ah, bh);
+      mma_us(lo, al, bh);
+    } else {
+      uint32_t bl[2];
+      bl[0] = B_lo[rb];
+      bl[1] = B_lo[rb + 4];
+      mma_ss(hi, ah, bh);
+      mma_su(lo, ah, bl);
     }
   }
-  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = hi[e] * 256 + lo[e];
+}
 
-  const float lm = lmbda[b];
-  const bool zero_out = w > 32 || h > 32;
+// store x (in [-2^15, 2^15)) at (row r, contraction index kk) of a split
+// byte plane pair
+template <int S>
+__device__ __forceinline__ void put_split(uint32_t* hi, uint32_t* lo, int r,
+                                          int kk, int x) {
+  const int o = r * TcGeom<S>::RW * 4 + kk;
+  reinterpret_cast<int8_t*>(hi)[o] = (int8_t)(x >> 8);
+  reinterpret_cast<uint8_t*>(lo)[o] = (uint8_t)(x & 255);
+}
+
+template <int S>
+__global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
+    const Inputs in, const TrialParams p) {
+  using G = TcGeom<S>;
+  constexpr int NW = G::THREADS / 32;
+  extern __shared__ __align__(16) uint32_t sm[];
+  // matrix planes (s8): tw [u][x], th [v][y], th^T [y][v], tw^T [x][u]
+  uint32_t* m_tw = sm;
+  uint32_t* m_th = m_tw + G::PLANE;
+  uint32_t* m_thT = m_th + G::PLANE;
+  uint32_t* m_twT = m_thT + G::PLANE;
+  // data planes, two split pairs used in turn
+  uint32_t* x_hi = m_twT + G::PLANE;
+  uint32_t* x_lo = x_hi + G::PLANE;
+  uint32_t* y_hi = x_lo + G::PLANE;
+  uint32_t* y_lo = y_hi + G::PLANE;
+  int* s_src = reinterpret_cast<int*>(y_lo + G::PLANE);      // [S][S]
+  int16_t* s_pred = reinterpret_cast<int16_t*>(s_src + S * S);  // [2][S*S]
+  __shared__ int s_top[kModes];
+  __shared__ long long s_sse[NW];
+  __shared__ int s_nnz[NW];
+  __shared__ float s_slog[NW];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  if (warp == 0) rank_modes(in, p, b, s_top);
+  // planes zeroed (the contraction padding at 16 stays 0), matrices as s8
+  for (int i = tid; i < 8 * G::PLANE; i += G::THREADS) sm[i] = 0;
+  __syncthreads();
+  for (int i = tid; i < S * S; i += G::THREADS) {
+    const int r = i / S, c = i - r * S;
+    const int8_t tw = (int8_t)in.tw[i], th = (int8_t)in.th[i];
+    reinterpret_cast<int8_t*>(m_tw)[r * G::RW * 4 + c] = tw;    // tw[u][x]
+    reinterpret_cast<int8_t*>(m_twT)[c * G::RW * 4 + r] = tw;   // tw[x][u]
+    reinterpret_cast<int8_t*>(m_th)[r * G::RW * 4 + c] = th;    // th[v][y]
+    reinterpret_cast<int8_t*>(m_thT)[c * G::RW * 4 + r] = th;   // th[y][v]
+    s_src[i] = in.src[(size_t)b * S * S + i];
+  }
+  __syncthreads();
+  auto fetch_pred = [&](int i) {
+    const int16_t* pb = in.preds + ((size_t)b * p.M + s_top[i]) * S * S;
+    int16_t* dst = s_pred + (i & 1) * S * S;
+    for (int j = tid; j < S * S / 8; j += G::THREADS)
+      cp_async16(dst + 8 * j, pb + 8 * j);
+    cp_async_commit();
+  };
+  fetch_pred(0);
+  const float lm = in.lmbda[b];
+  const bool zero_out = S > 32;
   for (int i = 0; i < p.k; ++i) {
-    const int mode = s_top[i];
-    const int16_t* pb = preds + ((size_t)b * p.M + mode) * hw;
-    for (int j = tid; j < hw; j += nt) s_pred[j] = pb[j];
-    __syncthreads();
-    // forward, rows: a[y][u] = sum_x (src - pred)[y][x] * tw[u][x]
-    for (int j = tid; j < hw; j += nt) {
-      const int y = j / w, u = j - y * w;
-      int acc = 0;
-      for (int x = 0; x < w; ++x)
-        acc += (s_src[y * w + x] - s_pred[y * w + x]) * s_tw[u * w + x];
-      s_a[j] = clampi(round_shift(acc, p.shift1), kCoeffMin, kCoeffMax);
+    if (i + 1 < p.k) {
+      fetch_pred(i + 1);
+      cp_async_wait_all_but_one();
+    } else {
+      cp_async_wait_all();
     }
     __syncthreads();
-    // forward, columns, then quantise / dequantise in place:
-    // c[v][u] = sum_y th[v][y] * a[y][u]
+    const int16_t* pred = s_pred + (i & 1) * S * S;
+    // the residual, split, as A of the row product: [y][x]
+    for (int j = tid; j < S * S; j += G::THREADS) {
+      const int y = j / S, x = j - y * S;
+      put_split<S>(x_hi, x_lo, y, x, s_src[j] - (int)pred[j]);
+    }
+    __syncthreads();
+    // forward rows: a[y][u] = sum_x r[y][x] tw[u][x] -> y planes [u][y]
+    for (int tt = warp; tt < G::TILES; tt += NW) {
+      const int m0 = (tt / G::NT) * 16, n0 = (tt % G::NT) * 8;
+      int c[4];
+      tile_product<S, true>(x_hi, x_lo, m_tw, nullptr, m0, n0, c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int y = m0 + g + 8 * (e >> 1), u = n0 + 2 * t4 + (e & 1);
+        put_split<S>(y_hi, y_lo, u, y,
+                     clampi(round_shift(c[e], p.shift1), kCoeffMin, kCoeffMax));
+      }
+    }
+    __syncthreads();
+    // forward columns: c[v][u] = sum_y th[v][y] a[y][u]; quantise and
+    // dequantise -> x planes [u][v]
     int nnz = 0;
     float slog = 0.f;
-    for (int j = tid; j < hw; j += nt) {
-      const int v = j / w, u = j - v * w;
-      int c = 0;
-      if (!zero_out || (u < 32 && v < 32)) {
-        int acc = 0;
-        for (int y = 0; y < h; ++y) acc += s_th[v * h + y] * s_a[y * w + u];
-        c = clampi(round_shift(acc, p.shift2), kCoeffMin, kCoeffMax);
+    for (int tt = warp; tt < G::TILES; tt += NW) {
+      const int m0 = (tt / G::NT) * 16, n0 = (tt % G::NT) * 8;
+      int c[4] = {0, 0, 0, 0};
+      const bool kept = !zero_out || (m0 < 32 && n0 < 32);
+      if (kept) tile_product<S, false>(m_th, nullptr, y_hi, y_lo, m0, n0, c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int v = m0 + g + 8 * (e >> 1), u = n0 + 2 * t4 + (e & 1);
+        int d = 0;
+        if (kept) {
+          const int cf =
+              clampi(round_shift(c[e], p.shift2), kCoeffMin, kCoeffMax);
+          d = quant_dequant(p, cf, nnz, slog);
+        }
+        put_split<S>(x_hi, x_lo, u, v, d);
       }
-      const int a = abs(c);
-      // int32 wrap-around as in the reference's int32 arithmetic
-      const int mag = (int)((unsigned)a * (unsigned)p.qscale +
-                            (unsigned)p.qadd) >> p.qbits;
-      const int q = c > 0 ? mag : (c < 0 ? -mag : 0);
-      nnz += q != 0;
-      slog = __fadd_rn(slog, log2f(__fadd_rn(1.0f, (float)mag)));
-      const int qc = clampi(q, -(1 << 15), (1 << 15) - 1);
-      const int d = p.dshift > 0
-                        ? (qc * p.dscale + (1 << (p.dshift - 1))) >> p.dshift
-                        : (qc * p.dscale) << (-p.dshift);
-      s_b[j] = clampi(d, kCoeffMin, kCoeffMax);
     }
     __syncthreads();
-    // inverse, columns: a[y][u] = sum_v th[v][y] * d[v][u]
-    for (int j = tid; j < hw; j += nt) {
-      const int y = j / w, u = j - y * w;
-      int acc = 0;
-      for (int v = 0; v < h; ++v) acc += s_th[v * h + y] * s_b[v * w + u];
-      s_a[j] = clampi(round_shift(acc, 7), kCoeffMin, kCoeffMax);
+    // inverse columns: a[y][u] = sum_v th[v][y] d[v][u] -> y planes [y][u]
+    for (int tt = warp; tt < G::TILES; tt += NW) {
+      const int m0 = (tt / G::NT) * 16, n0 = (tt % G::NT) * 8;
+      int c[4];
+      tile_product<S, false>(m_thT, nullptr, x_hi, x_lo, m0, n0, c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int y = m0 + g + 8 * (e >> 1), u = n0 + 2 * t4 + (e & 1);
+        put_split<S>(y_hi, y_lo, y, u,
+                     clampi(round_shift(c[e], 7), kCoeffMin, kCoeffMax));
+      }
     }
     __syncthreads();
-    // inverse, rows: r[y][x] = sum_u a[y][u] * tw[u][x]; recon and SSE
+    // inverse rows: r[y][x] = sum_u a[y][u] tw[u][x]; recon and SSE
     long long sse = 0;
-    for (int j = tid; j < hw; j += nt) {
-      const int y = j / w, x = j - y * w;
-      int acc = 0;
-      for (int u = 0; u < w; ++u) acc += s_a[y * w + u] * s_tw[u * w + x];
-      const int r = clampi(round_shift(acc, p.ishift2), kCoeffMin, kCoeffMax);
-      const int rec = clampi(s_pred[j] + r, 0, p.maxval);
-      const int e = s_src[j] - rec;
-      sse += (long long)e * e;
+    for (int tt = warp; tt < G::TILES; tt += NW) {
+      const int m0 = (tt / G::NT) * 16, n0 = (tt % G::NT) * 8;
+      int c[4];
+      tile_product<S, true>(y_hi, y_lo, m_twT, nullptr, m0, n0, c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int y = m0 + g + 8 * (e >> 1), x = n0 + 2 * t4 + (e & 1);
+        const int r = clampi(round_shift(c[e], p.ishift2), kCoeffMin,
+                             kCoeffMax);
+        const int rec = clampi((int)pred[y * S + x] + r, 0, p.maxval);
+        const int er = s_src[y * S + x] - rec;
+        sse += (long long)er * er;
+      }
     }
     sse = warp_sum(sse);
     nnz = warp_sum(nnz);
@@ -181,23 +414,189 @@ __global__ void __launch_bounds__(kMaxThreads) plan_trial_kernel(
       long long sse_t = 0;
       int nnz_t = 0;
       float slog_t = 0.f;
-      for (int q = 0; q < nwarps; ++q) {
+      for (int q = 0; q < NW; ++q) {
         sse_t += s_sse[q];
         nnz_t += s_nnz[q];
         slog_t = __fadd_rn(slog_t, s_slog[q]);
       }
-      const float fnnz = (float)nnz_t;
-      const float bits =
-          nnz_t > 0 ? __fadd_rn(__fadd_rn(p.c0, __fmul_rn(p.c1, fnnz)),
-                                __fmul_rn(p.c2, slog_t))
-                    : 1.0f;
-      const float cost = __fadd_rn(
-          (float)sse_t, __fmul_rn(lm, __fadd_rn(bits, mode_bits[mode])));
-      modes_out[(size_t)b * p.k + i] = mode;
-      costs_out[(size_t)b * p.k + i] = cost;
+      const int mode = s_top[i];
+      in.modes[(size_t)b * p.k + i] = mode;
+      in.costs[(size_t)b * p.k + i] =
+          trial_cost(p, sse_t, nnz_t, slog_t, lm, in.mode_bits[mode]);
     }
-    __syncthreads();  // s_pred, s_a, s_b and the sums are reused
+    // x planes, the prediction buffer and the sums are reused
   }
+}
+
+template <int S>
+size_t tc_smem() {
+  using G = TcGeom<S>;
+  return (size_t)8 * G::PLANE * 4 + (size_t)S * S * 4 + (size_t)2 * S * S * 2;
+}
+
+// ---------------------------------------------------------------------
+// every other shape: a warp per candidate on the CUDA cores
+// ---------------------------------------------------------------------
+
+constexpr int kWarpThreads = 256;
+
+struct WarpGeom {
+  int w, h, hw, kc;         // kc survivors side by side
+  int hwp;                  // a plane's stride (odd)
+  int per_warp;             // ints of shared memory per warp
+  int warps;                // warps (candidates) per block
+};
+
+WarpGeom warp_geom(int w, int h) {
+  WarpGeom q;
+  q.w = w;
+  q.h = h;
+  q.hw = w * h;
+  q.kc = q.hw >= 32 ? 1 : 32 / q.hw;
+  q.hwp = q.hw | 1;
+  q.per_warp = q.hwp * (1 + 3 * q.kc) + 4 * q.kc;   // src, kc x (pred, a, b)
+  const int budget = 40 * 1024 / 4;                  // ints for the warps
+  q.warps = budget / q.per_warp;
+  q.warps = q.warps < 1 ? 1 : (q.warps > 8 ? 8 : q.warps);
+  return q;
+}
+
+size_t warp_smem(const WarpGeom& q) {
+  // matrices tw, tw^T, th, th^T, then the warps' planes
+  return (size_t)(2 * q.w * q.w + 2 * q.h * q.h + q.warps * q.per_warp) * 4;
+}
+
+__global__ void __launch_bounds__(kWarpThreads) plan_trial_warp_kernel(
+    const Inputs in, const TrialParams p, const WarpGeom q) {
+  extern __shared__ int wsm[];
+  const int w = q.w, h = q.h, hw = q.hw;
+  int* s_tw = wsm;                  // [u][x]
+  int* s_twT = s_tw + w * w;        // [x][u]
+  int* s_th = s_twT + w * w;        // [v][y]
+  int* s_thT = s_th + h * h;        // [y][v]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < w * w; i += blockDim.x) {
+    s_tw[i] = in.tw[i];
+    s_twT[(i % w) * w + i / w] = in.tw[i];
+  }
+  for (int i = threadIdx.x; i < h * h; i += blockDim.x) {
+    s_th[i] = in.th[i];
+    s_thT[(i % h) * h + i / h] = in.th[i];
+  }
+  __syncthreads();
+  const int b = blockIdx.x * q.warps + warp;
+  if (warp >= q.warps || b >= in.B) return;
+  int* base = s_thT + h * h + warp * q.per_warp;
+  int* s_src = base;
+  int* s_top = base + q.hwp * (1 + 3 * q.kc);        // [kc] modes of a pass
+  for (int j = lane; j < hw; j += 32) s_src[j] = in.src[(size_t)b * hw + j];
+  // the ranking (into the per-warp list in turns of kc survivors)
+  __shared__ int s_rank[8][kModes];
+  rank_modes(in, p, b, s_rank[warp]);
+  __syncwarp();
+  const float lm = in.lmbda[b];
+  const bool zero_out = w > 32 || h > 32;
+  const int items = q.kc * hw;                        // (survivor, sample)
+  const int group = hw < 32 ? hw : 32;                // lanes of a survivor
+  for (int i0 = 0; i0 < p.k; i0 += q.kc) {
+    const int live = min(q.kc, p.k - i0);
+    if (lane < live) s_top[lane] = s_rank[warp][i0 + lane];
+    __syncwarp();
+    for (int j = lane; j < live * hw; j += 32) {
+      const int si = j / hw, jj = j - si * hw;
+      base[q.hwp * (1 + 3 * si) + jj] =
+          in.preds[((size_t)b * p.M + s_top[si]) * hw + jj];
+    }
+    __syncwarp();
+    // forward rows: a[y][u] = sum_x r[y][x] tw[u][x]
+    for (int j = lane; j < items; j += 32) {
+      const int si = j / hw, jj = j - si * hw;
+      if (si >= live) continue;
+      const int y = jj / w, u = jj - y * w;
+      int* pl = base + q.hwp * (1 + 3 * si);
+      int acc = 0;
+      for (int x = 0; x < w; ++x)
+        acc += (s_src[y * w + x] - pl[y * w + x]) * s_twT[x * w + u];
+      pl[q.hwp + jj] = clampi(round_shift(acc, p.shift1), kCoeffMin,
+                              kCoeffMax);
+    }
+    __syncwarp();
+    // forward columns, quantise / dequantise
+    int nnz = 0;
+    float slog = 0.f;
+    for (int j = lane; j < items; j += 32) {
+      const int si = j / hw, jj = j - si * hw;
+      if (si >= live) continue;
+      const int v = jj / w, u = jj - v * w;
+      int* pl = base + q.hwp * (1 + 3 * si);
+      int c = 0;
+      if (!zero_out || (u < 32 && v < 32)) {
+        int acc = 0;
+        for (int y = 0; y < h; ++y) acc += s_thT[y * h + v] * pl[q.hwp + y * w + u];
+        c = clampi(round_shift(acc, p.shift2), kCoeffMin, kCoeffMax);
+      }
+      pl[2 * q.hwp + jj] = quant_dequant(p, c, nnz, slog);
+    }
+    __syncwarp();
+    // inverse columns: a[y][u] = sum_v th[v][y] d[v][u]
+    for (int j = lane; j < items; j += 32) {
+      const int si = j / hw, jj = j - si * hw;
+      if (si >= live) continue;
+      const int y = jj / w, u = jj - y * w;
+      int* pl = base + q.hwp * (1 + 3 * si);
+      int acc = 0;
+      for (int v = 0; v < h; ++v) acc += s_th[v * h + y] * pl[2 * q.hwp + v * w + u];
+      pl[q.hwp + jj] = clampi(round_shift(acc, 7), kCoeffMin, kCoeffMax);
+    }
+    __syncwarp();
+    // inverse rows: r[y][x] = sum_u a[y][u] tw[u][x]; recon and SSE
+    long long sse = 0;
+    for (int j = lane; j < items; j += 32) {
+      const int si = j / hw, jj = j - si * hw;
+      if (si >= live) continue;
+      const int y = jj / w, x = jj - y * w;
+      const int* pl = base + q.hwp * (1 + 3 * si);
+      int acc = 0;
+      for (int u = 0; u < w; ++u) acc += pl[q.hwp + y * w + u] * s_tw[u * w + x];
+      const int r = clampi(round_shift(acc, p.ishift2), kCoeffMin, kCoeffMax);
+      const int rec = clampi(pl[jj] + r, 0, p.maxval);
+      const int er = s_src[jj] - rec;
+      sse += (long long)er * er;
+    }
+    // the sums of each survivor's lanes (a lane holds one survivor)
+    sse = warp_sum(sse, group);
+    nnz = warp_sum(nnz, group);
+    slog = warp_sum(slog, group);
+    const int si = lane / group;
+    if (lane % group == 0 && si < live) {
+      const int mode = s_top[si];
+      in.modes[(size_t)b * p.k + i0 + si] = mode;
+      in.costs[(size_t)b * p.k + i0 + si] =
+          trial_cost(p, sse, nnz, slog, lm, in.mode_bits[mode]);
+    }
+    __syncwarp();
+  }
+}
+
+enum Route { kWarp = 0, kTc16 = 16, kTc32 = 32, kTc64 = 64 };
+
+Route route_for(int w, int h) {
+  if (w == h && (w == 16 || w == 32 || w == 64)) return (Route)w;
+  return kWarp;
+}
+
+const void* tc_kernel(Route r) {
+  return r == kTc16   ? (const void*)plan_trial_tc_kernel<16>
+         : r == kTc32 ? (const void*)plan_trial_tc_kernel<32>
+                      : (const void*)plan_trial_tc_kernel<64>;
+}
+
+size_t tc_bytes(Route r) {
+  return r == kTc16 ? tc_smem<16>() : r == kTc32 ? tc_smem<32>() : tc_smem<64>();
+}
+
+int tc_threads(Route r) {
+  return r == kTc16 ? TcGeom<16>::THREADS : TcGeom<64>::THREADS;
 }
 
 }  // namespace
@@ -218,21 +617,71 @@ extern "C" int vt_plan_trial(
     int qadd, int dshift, int dscale, int maxval, float c0, float c1,
     float c2, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
-  if (k < 1 || k > M || M > kModes) return (int)cudaErrorInvalidValue;
-  TrialParams p{w, h, k, M, shift1, shift2, ishift2, qbits, qscale,
-                qadd, dshift, dscale, maxval, c0, c1, c2};
-  const int hw = w * h;
-  int threads = hw < 32 ? 32 : (hw > kMaxThreads ? kMaxThreads : hw);
-  const size_t smem = (size_t)(4 * hw + w * w + h * h) * sizeof(int);
-  if (smem > 48 * 1024) {
+  if (k < 1 || k > M || M > kModes || B < 1) return (int)cudaErrorInvalidValue;
+  const TrialParams p{w, h, k, M, shift1, shift2, ishift2, qbits, qscale,
+                      qadd, dshift, dscale, maxval, c0, c1, c2};
+  const Inputs in{(const int*)src, (const int16_t*)preds, (const int*)satd,
+                  (const float*)lmbda, (const float*)lmbda_sad,
+                  (const float*)mode_bits, (const int*)tw, (const int*)th,
+                  (int*)modes, (float*)costs, B};
+  cudaStream_t st = (cudaStream_t)stream;
+  const Route r = route_for(w, h);
+  if (r == kWarp) {
+    const WarpGeom q = warp_geom(w, h);
+    const size_t shm = warp_smem(q);
     cudaError_t e = cudaFuncSetAttribute(
-        plan_trial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        plan_trial_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shm);
     if (e != cudaSuccess) return (int)e;
+    plan_trial_warp_kernel<<<(B + q.warps - 1) / q.warps, kWarpThreads, shm,
+                             st>>>(in, p, q);
+    return (int)cudaGetLastError();
   }
-  plan_trial_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const int*)src, (const int16_t*)preds, (const int*)satd,
-      (const float*)lmbda, (const float*)lmbda_sad, (const float*)mode_bits,
-      (const int*)tw, (const int*)th, (int*)modes, (float*)costs, p);
+  const size_t shm = tc_bytes(r);
+  cudaError_t e = cudaFuncSetAttribute(
+      tc_kernel(r), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  if (e != cudaSuccess) return (int)e;
+  if (r == kTc16)
+    plan_trial_tc_kernel<16><<<B, TcGeom<16>::THREADS, shm, st>>>(in, p);
+  else if (r == kTc32)
+    plan_trial_tc_kernel<32><<<B, TcGeom<32>::THREADS, shm, st>>>(in, p);
+  else
+    plan_trial_tc_kernel<64><<<B, TcGeom<64>::THREADS, shm, st>>>(in, p);
   return (int)cudaGetLastError();
+}
+
+// the resources of the kernel a (w, h) class launches: out = registers
+// per thread, static and dynamic shared memory bytes, threads per block,
+// resident blocks per SM, local memory bytes per thread.
+extern "C" int vt_plan_trial_attrs(int w, int h, int* out) {
+  const Route r = route_for(w, h);
+  const void* f;
+  size_t shm;
+  int threads;
+  if (r == kWarp) {
+    const WarpGeom q = warp_geom(w, h);
+    f = (const void*)plan_trial_warp_kernel;
+    shm = warp_smem(q);
+    threads = kWarpThreads;
+  } else {
+    f = tc_kernel(r);
+    shm = tc_bytes(r);
+    threads = tc_threads(r);
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, f);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, threads, shm);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)shm;
+  out[3] = threads;
+  out[4] = blocks;
+  out[5] = (int)a.localSizeBytes;
+  return 0;
 }

@@ -41,7 +41,7 @@ from . import intra as I
 from . import kernels
 from .intra_vec import _shape_tables
 from .rdcost import _hadamard
-from .tables import device_tables
+from .tables import device_tables, presel_device_tables
 
 NUM_MODES = I.NUM_LUMA_MODE  # 67
 
@@ -365,7 +365,14 @@ def plane_inputs(plane: torch.Tensor, pad: int, xs, ys, w: int, h: int):
 
 
 _K4G_ARGS = [_P, _P, _I, _P, _I, ctypes.c_longlong, _P, _I, _I, _I, _I, _I,
-             _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+             _P, _P, _P, _P, _P, _P, _I, _P]
+
+
+def _k4_tables(t: dict) -> tuple:
+    """K4's per-mode table arguments (ops/tables.presel_device_tables)."""
+    return (t["gidx"].data_ptr(), t["rs"].data_ptr(), t["taps"].data_ptr(),
+            t["wl"].data_ptr(), t["soff"].data_ptr(), t["minfo"].data_ptr(),
+            t["LM"])
 
 
 def presel_costs(src_blocks: torch.Tensor, tops: torch.Tensor,
@@ -396,26 +403,23 @@ def presel_costs(src_blocks: torch.Tensor, tops: torch.Tensor,
     out = torch.empty((B, NUM_MODES), dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    t = device_tables(w, h, dev)
     # the pool's segments: the references cut to LPAD, as the reference
     # cuts them (predict_all_modes_ref)
-    nA, nL = min(tops.shape[1], t["LPAD"]), min(lefts.shape[1], t["LPAD"])
+    lpad = _shape_tables(w, h, True, 0).LPAD
+    nA, nL = min(tops.shape[1], lpad), min(lefts.shape[1], lpad)
+    t = presel_device_tables(w, h, nA, nL, dev)
     fn = kernels.function("presel_costs", "vt_presel_costs_gathered",
                           _K4G_ARGS)
     err = fn(src_blocks.data_ptr(), tops.data_ptr(), tops.shape[1],
              lefts.data_ptr(), lefts.shape[1], B, out.data_ptr(), w, h,
-             bit_depth, nA, nL, t["rm_flat"].data_ptr(),
-             t["row_start"].data_ptr(), t["filt"].data_ptr(),
-             t["mode_info"].data_ptr(), t["pdpc_wl"].data_ptr(),
-             t["side_flat"].data_ptr(), t["LR"], t["TM"], t["B0"],
-             kernels.stream_ptr(out))
+             bit_depth, nA, nL, *_k4_tables(t), kernels.stream_ptr(out))
     kernels.check("presel_costs", err)
     kernels.count("presel_costs_gathered")
     return out
 
 
-_K4_ARGS = [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+_K4_ARGS = [_P, ctypes.c_longlong, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P, _I, _P]
 
 
 def presel_costs_plane(plane: torch.Tensor, pad: int, xs: torch.Tensor,
@@ -447,6 +451,9 @@ def presel_costs_plane(plane: torch.Tensor, pad: int, xs: torch.Tensor,
     if pad < max(w, h) + 2:
         raise ValueError(f"pad {pad}: the {w}x{h} references reach "
                          f"{max(w, h) + 2} samples past the picture")
+    if plane.data_ptr() % 4:
+        raise ValueError("plane: the kernel copies int16 pairs, so its "
+                         "base must be 4-byte aligned")
     if out is None:
         out = torch.empty((nx * ny, NUM_MODES), dtype=torch.int32,
                           device=dev)
@@ -456,14 +463,11 @@ def presel_costs_plane(plane: torch.Tensor, pad: int, xs: torch.Tensor,
                          f"({nx * ny}, {NUM_MODES})")
     if nx * ny == 0:
         return out
-    t = device_tables(w, h, dev)
+    t = presel_device_tables(w, h, 2 * w + 3, 2 * h + 3, dev)
     fn = kernels.function("presel_costs", "vt_presel_costs", _K4_ARGS)
     err = fn(plane.data_ptr(), plane.shape[1], pad, xs.data_ptr(), nx,
              ys.data_ptr(), ny, out.data_ptr(), w, h, bit_depth,
-             t["rm_flat"].data_ptr(), t["row_start"].data_ptr(),
-             t["filt"].data_ptr(), t["mode_info"].data_ptr(),
-             t["pdpc_wl"].data_ptr(), t["side_flat"].data_ptr(),
-             t["LR"], t["TM"], t["B0"], kernels.stream_ptr(out))
+             *_k4_tables(t), kernels.stream_ptr(out))
     kernels.check("presel_costs", err)
     kernels.count("presel_costs")
     return out

@@ -145,6 +145,22 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"CUDA kernel {name}: error {err} ({msg})")
 
 
+RESOURCE_KEYS = ("registers", "static_smem", "dynamic_smem", "threads",
+                 "blocks_per_sm", "local_bytes")
+
+
+def resources(name: str, symbol: str, *args: int) -> dict:
+    """The resources of a kernel of source `name` as its C query `symbol`
+    (a vt_*_attrs function taking ints, then an int[6]) reports them:
+    RESOURCE_KEYS -> int (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card)."""
+    fn = function(name, symbol, [ctypes.c_int] * len(args)
+                  + [ctypes.c_void_p])
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    check(name, fn(*args, ctypes.addressof(out)))
+    return dict(zip(RESOURCE_KEYS, out))
+
+
 def stream_ptr(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
