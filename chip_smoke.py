@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch/CUDA port (vvenc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--json PATH]   # from the repository root, one card
-    python3 chip_smoke.py --only k3k4     # K1-K4 checks, times, resources
 
 Phases; any mismatch or error ends the run with a non-zero exit code:
 
@@ -270,22 +269,33 @@ def work(name: str, B: int, s: int, k: int) -> tuple:
             B * k * (4 * s * n * 2 + 20 * n))
 
 
-def plan_tc_bound_ms(B: int, s: int, k: int) -> float:
-    """K3's bound on the tensor cores (16x16 .. 64x64): the four s^3
-    multiply-add products per survivor, each as two int8 products (the
-    split data operand), 2 operations a multiply-add, at the 1,979 T/s
-    int8 peak."""
-    return B * k * 4 * s ** 3 * 2 * 2 / INT8_TC_OPS_PER_S * 1e3
+def plan_bound_ms(B: int, s: int, k: int) -> tuple:
+    """(least milliseconds, "bytes" or "operations") of K3 on one s x s
+    class as the kernel computes it.  From 16x16 up the four s^3 products
+    of a survivor run on the int8 tensor cores, each as two int8 products
+    (the split data operand), 2 operations a multiply-add at the 1,979 T/s
+    int8 peak, beside the 20 per-sample operations at the int32 rate;
+    4x4 and 8x8 run on the CUDA cores and count work()'s int32
+    operations.  work()'s int32 count on every class stays the fixed
+    yardstick beside it."""
+    nbytes, ops = work("plan_trial", B, s, k)
+    if s < 16:
+        return bound_ms(nbytes, ops)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(B * k * 4 * s ** 3 * 2 * 2 / INT8_TC_OPS_PER_S,
+             B * k * 20 * s * s / INT32_OPS_PER_S) * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def presel_work(B: int, w: int, h: int, plane_bytes: int) -> tuple:
     """(bytes, int32 operations) of K4 on one class: reads the plane and
     the grid, writes [B, 67] int32; per prediction sample K1's 11 and
     K2's 9 operations (no intermediate is written).  Counted against the
-    67 T/s float32 peak as in PR 2; Hopper issues 32-bit integer
-    multiply-adds at half that rate (64 lanes per SM per clock), so a
-    kernel on integer CUDA cores can approach this bound but not reach
-    it; PR 5's K4 runs its per-sample arithmetic on the float32 pipe."""
+    67 T/s float32 peak, the fixed yardstick of every K4 design; Hopper
+    issues 32-bit integer multiply-adds at half that rate (64 lanes per
+    SM per clock), so a kernel on integer CUDA cores can approach this
+    bound but not reach it; K4 runs its per-sample arithmetic on the
+    float32 pipe."""
     return plane_bytes + B * 67 * 4, B * 67 * w * h * (11 + 9)
 
 
@@ -442,6 +452,9 @@ def run_classes(torch, dev, srcs, bit_depth, qp, lmbda, sizes,
         rec["work"] = {n: work(n, B, s, k) for n in PLAN_KERNELS}
         rec["bound_ms"] = {n: bound_ms(*rec["work"][n])[0]
                            for n in PLAN_KERNELS}
+        rec["k3_int32_bound_ms"] = rec["bound_ms"]["plan_trial"]
+        rec["bound_ms"]["plan_trial"], rec["k3_bound_by"] = plan_bound_ms(
+            B, s, k)
         recs.append(rec)
         mk_all.append(mk.cpu().numpy())
         ck_all.append(ck.cpu().numpy())
@@ -1325,10 +1338,9 @@ def k3_k4_phase(torch, dev, report):
                 f"bound {r['bound_ms'][n]:.3f})" for n in PLAN_KERNELS))
         print(f"  K3 plan_trial class sum {bd}-bit: "
               f"{sum(r['ms']['plan_trial'] for r in recs):.4f} ms (bound "
-              f"{sum(r['bound_ms']['plan_trial'] for r in recs):.4f}; the "
-              f"16..64 classes on the int8 tensor cores "
-              f"{sum(plan_tc_bound_ms(r['B'], r['s'], k) for r in recs if r['s'] >= 16):.4f})",
-              flush=True)
+              f"{sum(r['bound_ms']['plan_trial'] for r in recs):.4f}, 16..64 "
+              f"on the int8 tensor cores; int32 yardstick "
+              f"{sum(r['k3_int32_bound_ms'] for r in recs):.4f})", flush=True)
         report["phase3"].append({"bit_depth": bd, "flips": flips,
                                  "classes": recs})
 
@@ -1346,9 +1358,10 @@ def k3_k4_phase(torch, dev, report):
     print(f"phase 3: config 1's plan batch ({cf} x {cw}x{ch}, {cbd}-bit): "
           f"K1-K3 as at 1080p, {cflips} near-tie flips; " + ", ".join(
               f"{n} {sum(r['ms'][n] for r in crecs):.4f} ms" for n in
-              PLAN_KERNELS) + "; per class " + ", ".join(
-              f"{r['s']}: {r['ms']['plan_trial']:.4f}" for r in crecs),
-          flush=True)
+              PLAN_KERNELS) + "; K3 per class " + ", ".join(
+              f"{r['s']}: {r['ms']['plan_trial']:.4f} (bound "
+              f"{r['bound_ms']['plan_trial']:.4f}, int32 yardstick "
+              f"{r['k3_int32_bound_ms']:.4f})" for r in crecs), flush=True)
     report["config1_batch"] = crecs
 
     # phase 3, K4: one 1080p 10-bit picture, every MTT class (the medium
@@ -1390,10 +1403,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", dest="json_path", default=None,
                     help="also write the detailed numbers to this file")
-    ap.add_argument("--only", choices=("k3k4",), default=None,
-                    help="k3k4: build K1-K4 only and run phase 3's K1-K4 "
-                    "checks, timings and resource lines, then stop (no "
-                    "result line)")
     args = ap.parse_args(argv)
     json_path = args.json_path
     import torch
@@ -1412,16 +1421,6 @@ def main(argv=None) -> int:
     # phase 2: kernels (parallel nvcc) and the native library (g++)
     from vvenc_tpu_torch.ops import kernels
     t0 = time.time()
-    if args.only:
-        built = kernels.build(("intra_pred_all", "satd_modes", "plan_trial",
-                               "presel_costs"))
-        print(f"phase 2: built K1-K4 in {time.time() - t0:.1f} s", flush=True)
-        print_ptxas(built)
-        report = {"card": card, "kind": kind}
-        k3_k4_phase(torch, dev, report)
-        write_json(json_path, report)
-        print(card)
-        return 0
     built = {}
     th = threading.Thread(target=lambda: built.update(kernels.build()))
     th.start()
@@ -1557,6 +1556,11 @@ def main(argv=None) -> int:
             plain_ms = sum(r["plain_ms"][n] for r in crecs)
             bms, by = bound_ms(sum(r["work"][n][0] for r in crecs),
                                sum(r["work"][n][1] for r in crecs))
+            if n == "plan_trial":
+                # per class, as the kernel computes it (plan_bound_ms)
+                bms = sum(r["bound_ms"][n] for r in crecs)
+                by = max(("bytes", "operations"), key=lambda b: sum(
+                    r["bound_ms"][n] for r in crecs if r["k3_bound_by"] == b))
             err = max(r["k3_max_abs_err"] for r in crecs) \
                 if n == "plan_trial" else 0.0
             nl = api_launches["api_config1"][n]

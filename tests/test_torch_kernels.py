@@ -375,15 +375,16 @@ def _checker_plane(W, H, bd, pad):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
 @pytest.mark.parametrize("case", ["ragged", "single", "checker"])
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (64, 64), (4, 16),
                                  (32, 8), (8, 64)])
-def test_presel_costs_groups_and_extremes(cuda, w, h, case):
+def test_presel_costs_groups_and_extremes(cuda, w, h, case, bd):
     """K4's two entries bit-exact against presel_costs_ref on a last
     candidate group that is not full (the class grid of a 136x72 plane,
     and a batch of 37), on a single candidate, and on a 0 / max
-    checkerboard at 10 bits."""
-    bd, pad = 10, S.FramePresel.PAD
+    checkerboard (0 / 255 at 8 bits, 0 / 1023 at 10)."""
+    pad = S.FramePresel.PAD
     rng = np.random.RandomState(w * 7 + h)
     W, H = 136, 72
     plane = (_checker_plane(W, H, bd, pad) if case == "checker"

@@ -18,14 +18,18 @@
 //
 // What bounds it on the H100: a survivor costs four s x s x s matrix
 // products (8 s^3 multiply-adds a block for k = 2) against 67 * 4 bytes
-// of SATD, s * s * 4 of source and k * s * s * 2 of predictions read:
-// operations, at 1.6e8 integer multiply-adds per 1080p frame of 64x64
-// blocks.  PR 1's kernel ran one block of up to 256 threads per candidate
-// (32 threads, 16 busy, at 4x4), ranked the modes on one thread, read the
-// row transform at a stride of w ints (32-way bank conflicts at w >= 32)
-// and held 98 KB of shared memory at 64x64 (two blocks per SM).
+// of SATD, s * s * 4 of source and k * s * s * 2 of predictions read.
+// As int32 multiply-adds on the CUDA cores that is operations from 16x16
+// up (1.6e8 per 1080p frame of 64x64 blocks); as split int8 products on
+// the tensor cores (16 s^3 int8 operations a survivor at 1,979 T/s) every
+// class is bound by the bytes it reads, and 4x4 and 8x8 are so even at
+// the int32 rate.  The earlier kernel ran one block of up to 256 threads
+// per candidate (32 threads, 16 busy, at 4x4), ranked the modes on one
+// thread, read the row transform at a stride of w ints (32-way bank
+// conflicts at w >= 32) and held 98 KB of shared memory at 64x64 (two
+// blocks per SM).
 //
-// Design (PR 5):
+// Design:
 // - the ranking is a warp argmin over (score, mode) keys, the lowest
 //   index on ties, k times (three modes a lane);
 // - 16x16, 32x32, 64x64: one block per candidate, the four products on

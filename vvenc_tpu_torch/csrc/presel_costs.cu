@@ -31,7 +31,7 @@
 // tests/test_torch_exact_split.py holds this algebra and the order of
 // operations against the integer version.
 //
-// Design (PR 5; PR 2's kernel held a whole tile's prediction, window and
+// Design (the earlier kernel held a whole tile's prediction, window and
 // weights in 140 registers, one 256-thread block per SM, and read its
 // per-mode tables per sample through L1):
 // - persistent blocks walk the class's groups of G candidates; the next
