@@ -12,21 +12,29 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
    (native/entropy.cpp, g++) and the C shim with its C client
    (capi_c/, g++ against libpython), and prints the build seconds.
 3. Holds each kernel against its plain PyTorch version on the card:
-   - K1 (intra_pred_all), K2 (satd_modes), K3 (plan_trial) on 4 smooth
+   - device planning's route (the fused 67-mode SATD, K4's gathered
+     entry presel_costs, then K3's reference entry plan_trial_refs, which
+     predicts its own survivors) beside K1 (intra_pred_all) -> K2
+     (satd_modes) -> K3 (plan_trial), the route before it, on 4 smooth
      1920x1080 luma frames at 8 and at 10 bits, every plan class 4..64:
-     K1 and K2 bit-exact, K3 modes equal and costs within rtol 1e-5, and
-     the plan tables (mode0, mode1, split after the PLAN_MARGIN drop and
-     the quadtree DP) equal, a flip being allowed only at a near-tie
-     (relative gap < 1e-5; flips are counted and printed).  Times at
-     config 1's one 10-frame plan batch and at 1080p.
+     K1 and K2 bit-exact, the fused SATD bit-exact to K2(K1(...)), both
+     K3 entries' modes equal and costs within rtol 1e-5, and the plan
+     tables of each route (mode0, mode1, split after the PLAN_MARGIN
+     drop and the quadtree DP) equal to the plain versions', a flip
+     being allowed only at a near-tie (relative gap < 1e-5; flips are
+     counted and printed).  Times per class at 1080p, on config 1's one
+     10-frame plan batch and on one of its pictures (the streaming
+     encode's plan); then build_plans on config 1's batch and 1080p
+     faster's through both routes in turns: times, the peak of
+     torch.cuda.max_memory_allocated, plan tables equal.
    - K4 (presel_costs) bit-exact on one 1920x1080 10-bit picture over
      all 23 MTT classes, and on an 832x480 8-bit crop; times it per
      class and per picture (all classes into one buffer), the one fetch
      of the picture's costs apart (pinned and pageable), and a whole
      FramePresel (upload, launches, fetch).
-   - The resources of K3's and K4's kernels per class: registers, static
-     and dynamic shared memory, threads and resident blocks per SM (each
-     source's vt_*_attrs query).
+   - The resources of K3's (both entries) and K4's kernels per class:
+     registers, static and dynamic shared memory, threads and resident
+     blocks per SM (each source's vt_*_attrs query).
    - K4's gathered entry (presel_costs, the reference's inputs) on the
      same picture and classes: bit-exact against the plain version and
      equal to the plane form; timed per class.
@@ -54,8 +62,10 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
    read just after, the port's decoder giving back every picture of the
    encoder's reconstruction; prints fps and the device-time share:
    - config 1 (all-intra 416x240 8-bit, 10 frames, QP 37, --preset
-     faster --intra-period 1): device_rd must resolve to "on", K1-K3
-     launch and every plan is consumed;
+     faster --intra-period 1): device_rd must resolve to "on", the fused
+     SATD and K3's reference entry launch and every plan is consumed;
+     in this and every other encode of this phase K1, K2 and the
+     preds-form K3 must not launch;
    - the same at 1920x1080, 4 frames;
    - 1920x1080 all-intra --preset medium, 2 frames: intra_presel must
      resolve to "source" and K4 launch;
@@ -64,7 +74,8 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      --preset medium --gop-size 2 --intra-period 0 --qpa 1 --wpp
      --threads 2), both with --set me_mode=device: K5 must launch;
    - the library entry points: VVEncImpl streaming config 1's options
-     (K1-K3 must launch in its window) and config 2's with
+     (the fused SATD and K3's reference entry must launch in its
+     window) and config 2's with
      me_mode=device (K5 must launch), each equal to the batch encoder
      of the same options and decoded; ffapp.main on a .cfg file of
      config 1's options equal to the CLI's stream; the C shim driven by
@@ -79,8 +90,11 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      4) equal to a replay with the shard-level permutation, and the
      streams of config 1 and 1080p faster with intra_plan.MESH and of
      1080p medium with intra_presel.MESH byte-identical to the unsharded
-     encodes above (and decoded); K1-K4's gathered entry, K6 and K7 must
-     launch.  Then graft_entry.dryrun_multichip(4).
+     encodes above (and decoded); K4's gathered entry and K3's reference
+     entry must launch in the hooked all-intra faster encodes, K4's
+     gathered entry in the medium one.  Then
+     graft_entry.dryrun_multichip(4), where search_step launches K1, K2,
+     K6 and K7.
 5. Prints a {"kernels": [...]} line, then the card line, then the last
    line {"ok": true, "device": {...}}.
 
@@ -116,6 +130,8 @@ KERNELS = {
                    "vvenc_tpu/ops/intra_presel.py:176"),
     "plan_trial": ("vvenc_tpu_torch/csrc/plan_trial.cu",
                    "vvenc_tpu/ops/intra_plan.py:109"),
+    "plan_trial_refs": ("vvenc_tpu_torch/csrc/plan_trial.cu",
+                        "vvenc_tpu/ops/intra_plan.py:109"),
     "presel_costs": ("vvenc_tpu_torch/csrc/presel_costs.cu",
                      "vvenc_tpu/ops/intra_presel.py:197"),
     "frame_me": ("vvenc_tpu_torch/csrc/frame_me.cu",
@@ -143,10 +159,19 @@ KERNELS = {
     "mode_costs": ("vvenc_tpu_torch/csrc/mode_costs.cu",
                    "vvenc_tpu/ops/intra_batch.py:100"),
 }
-PLAN_KERNELS = ("intra_pred_all", "satd_modes", "plan_trial")
+# device planning's two launches per class: the fused 67-mode SATD (K4's
+# gathered entry) and K3's reference entry
+PLAN_KERNELS = ("presel_costs_gathered", "plan_trial_refs")
+# K1 -> K2 -> K3 on K1's predictions, device planning's route before the
+# fused one: held per class beside it; no encode path may launch them
+# (K1 and K2 stay on the mesh path's search_step)
+OLD_PLAN_KERNELS = ("intra_pred_all", "satd_modes", "plan_trial")
+CLASS_KERNELS = OLD_PLAN_KERNELS + PLAN_KERNELS
 TR_KERNELS = ("fwd_transform_batch", "inv_transform_batch", "quant_batch",
               "dequant_batch")
-MESH_KERNELS = PLAN_KERNELS + TR_KERNELS + ("presel_costs_gathered",)
+# the dry run: search_step (K1, K2, K6, K7), the sharded presel (K4's
+# gathered entry) and the e2e encode with intra_plan.MESH (PLAN_KERNELS)
+MESH_KERNELS = ("intra_pred_all", "satd_modes") + PLAN_KERNELS + TR_KERNELS
 # K6/K7's classes: every square class and two rectangular ones
 TR_CLASSES = ((4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (8, 4), (16, 8))
 # the __global__ function of each K6/K7 entry, as the profiler names it
@@ -205,6 +230,14 @@ def nonzero(launches: dict) -> dict:
     return {k: v for k, v in launches.items() if v}
 
 
+def no_old_route(tag: str, launches: dict) -> None:
+    """Fails if an encode path launched K1, K2 or the preds-form K3:
+    device planning takes the fused route on every path."""
+    bad = {n: launches[n] for n in OLD_PLAN_KERNELS if launches[n]}
+    if bad:
+        fail(f"{tag}: {bad} launched on an encode path: {launches}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -254,6 +287,14 @@ def work(name: str, B: int, s: int, k: int) -> tuple:
     """(bytes, int32 operations) the function needs for B blocks of s x s
     (each input read once, each output written once)."""
     M, n = 67, s * s
+    if name == "presel_costs_gathered":
+        return gathered_work(B, s, s)
+    if name == "plan_trial_refs":
+        # plan_trial with the references read in place of the k
+        # predictions, which it computes: K1's 11 operations a sample
+        nb, ops = work("plan_trial", B, s, k)
+        return (nb - B * k * n * 2 + B * 2 * (2 * s + 3) * 4,
+                ops + B * k * n * 11)
     if name == "intra_pred_all":
         # reads tops + lefts, writes the 67 predictions; 4 multiply-adds,
         # a round, a shift and a clip per sample
@@ -269,21 +310,24 @@ def work(name: str, B: int, s: int, k: int) -> tuple:
             B * k * (4 * s * n * 2 + 20 * n))
 
 
-def plan_bound_ms(B: int, s: int, k: int) -> tuple:
-    """(least milliseconds, "bytes" or "operations") of K3 on one s x s
-    class as the kernel computes it.  From 16x16 up the four s^3 products
-    of a survivor run on the int8 tensor cores, each as two int8 products
-    (the split data operand), 2 operations a multiply-add at the 1,979 T/s
-    int8 peak, beside the 20 per-sample operations at the int32 rate;
-    4x4 and 8x8 run on the CUDA cores and count work()'s int32
-    operations.  work()'s int32 count on every class stays the fixed
-    yardstick beside it."""
-    nbytes, ops = work("plan_trial", B, s, k)
+def plan_bound_ms(B: int, s: int, k: int,
+                  name: str = "plan_trial") -> tuple:
+    """(least milliseconds, "bytes" or "operations") of K3 (`name`: the
+    preds form or the reference entry) on one s x s class as the kernel
+    computes it.  From 16x16 up the four s^3 products of a survivor run
+    on the int8 tensor cores, each as two int8 products (the split data
+    operand), 2 operations a multiply-add at the 1,979 T/s int8 peak,
+    beside the 20 per-sample operations (31 with the reference entry's
+    prediction) at the int32 rate; 4x4 and 8x8 run on the CUDA cores and
+    count work()'s int32 operations.  work()'s int32 count on every class
+    stays the fixed yardstick beside it."""
+    nbytes, ops = work(name, B, s, k)
     if s < 16:
         return bound_ms(nbytes, ops)
+    per_sample = 20 + (11 if name == "plan_trial_refs" else 0)
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = max(B * k * 4 * s ** 3 * 2 * 2 / INT8_TC_OPS_PER_S,
-             B * k * 20 * s * s / INT32_OPS_PER_S) * 1e3
+             B * k * per_sample * s * s / INT32_OPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -389,23 +433,31 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
 
 def run_classes(torch, dev, srcs, bit_depth, qp, lmbda, sizes,
                 implicit_mts, k, reps, plain_reps, check):
-    """Every class of one frame batch through K1 -> K2 -> K3 and their
-    plain versions; returns per-class records and the flat (class,
-    frame, block) modes/costs of both routes."""
+    """Every class of one frame batch through device planning's route
+    (the fused SATD, K4's gathered entry, then K3's reference entry),
+    through K1 -> K2 -> K3 and through the plain versions: the fused SATD
+    bit-exact to K2(K1(...)) and to the plain one, both K3 entries' modes
+    equal to plan_trial_ref's and their costs within COST_RTOL.  Times
+    each kernel per class (its plain version too when plain_reps > 0).
+    Returns per-class records and the flat (class, frame, block)
+    modes/costs of the route, of K1 -> K2 -> K3 and of the plain
+    versions."""
     from vvenc_tpu_torch.ops import intra_plan as P
     from vvenc_tpu_torch.ops import intra_presel as S
-    F = len(srcs)
     H, W = srcs[0].shape
     planes = torch.from_numpy(np.stack(
         [np.pad(s, P.PAD, mode="edge") for s in srcs]).astype(np.int16)
     ).to(dev)
-    recs, mk_all, ck_all, mr_all, cr_all = [], [], [], [], []
+    recs, out = [], {"route": [], "old": [], "plain": []}
     for s in sizes:
         blocks, tops, lefts = P._class_inputs(planes, s, W, H)
         B = blocks.shape[0]
         lm = torch.full((B,), lmbda, dtype=torch.float32, device=dev)
         ls = torch.full((B,), float(np.float32(lmbda) ** 0.5),
                         dtype=torch.float32, device=dev)
+        fk = S.presel_costs(blocks, tops, lefts, s, s, bit_depth)
+        fmk, fck = P.plan_trial_refs(blocks, tops, lefts, fk, lm, ls, s, s,
+                                     qp, bit_depth, implicit_mts, k)
         pk = S.predict_all_modes(tops, lefts, s, s, bit_depth)
         pr = S.predict_all_modes_ref(tops, lefts, s, s, bit_depth)
         sk = S.satd_batch(blocks, pk, s, s)
@@ -423,46 +475,144 @@ def run_classes(torch, dev, srcs, bit_depth, qp, lmbda, sizes,
                      f"{bit_depth}-bit; first [b, mode, y, x]: {bad}")
             if not torch.equal(sk, sr):
                 fail(f"K2 satd_modes != plain at {s}x{s}, {bit_depth}-bit")
-            if not torch.equal(mk, mr):
-                fail(f"K3 plan_trial modes != plain at {s}x{s}, "
-                     f"{bit_depth}-bit")
-            rel = ((ck - cr).abs() / cr.abs().clamp_min(1e-30)).max().item()
-            if not rel <= COST_RTOL:
-                fail(f"K3 plan_trial costs: rel err {rel} > {COST_RTOL} "
-                     f"at {s}x{s}, {bit_depth}-bit")
-            rec["k3_max_rel_err"] = rel
-            rec["k3_max_abs_err"] = (ck - cr).abs().max().item()
+            if not torch.equal(fk, sk):
+                fail(f"the fused SATD (presel_costs) != K2(K1(...)) at "
+                     f"{s}x{s}, {bit_depth}-bit")
+            for name, m_, c_ in (("plan_trial", mk, ck),
+                                 ("plan_trial_refs", fmk, fck)):
+                if not torch.equal(m_, mr):
+                    fail(f"K3 {name} modes != plain at {s}x{s}, "
+                         f"{bit_depth}-bit")
+                rel = ((c_ - cr).abs() / cr.abs().clamp_min(1e-30)).max() \
+                    .item()
+                if not rel <= COST_RTOL:
+                    fail(f"K3 {name} costs: rel err {rel} > {COST_RTOL} at "
+                         f"{s}x{s}, {bit_depth}-bit")
+                rec[f"{name}_max_rel_err"] = rel
+                rec[f"{name}_max_abs_err"] = (c_ - cr).abs().max().item()
         args3 = (blocks, pk, sk, lm, ls, s, s, qp, bit_depth, implicit_mts,
                  k)
-        rec["ms"] = {
-            "intra_pred_all": cuda_ms(torch, lambda: S.predict_all_modes(
-                tops, lefts, s, s, bit_depth), reps),
-            "satd_modes": cuda_ms(torch, lambda: S.satd_batch(
-                blocks, pk, s, s), reps),
-            "plan_trial": cuda_ms(torch, lambda: P.plan_trial(*args3), reps),
+        args3r = (blocks, tops, lefts, fk, lm, ls, s, s, qp, bit_depth,
+                  implicit_mts, k)
+        calls = {
+            "intra_pred_all": (
+                lambda: S.predict_all_modes(tops, lefts, s, s, bit_depth),
+                lambda: S.predict_all_modes_ref(tops, lefts, s, s,
+                                                bit_depth)),
+            "satd_modes": (lambda: S.satd_batch(blocks, pk, s, s),
+                           lambda: S.satd_batch_ref(blocks, pk, s, s)),
+            "plan_trial": (lambda: P.plan_trial(*args3),
+                           lambda: P.plan_trial_ref(*args3)),
+            "presel_costs_gathered": (
+                lambda: S.presel_costs(blocks, tops, lefts, s, s,
+                                       bit_depth),
+                lambda: S.presel_costs_ref(blocks, tops, lefts, s, s,
+                                           bit_depth)),
+            "plan_trial_refs": (lambda: P.plan_trial_refs(*args3r),
+                                lambda: P.plan_trial_refs_ref(*args3r)),
         }
-        rec["plain_ms"] = {
-            "intra_pred_all": cuda_ms(torch, lambda: S.predict_all_modes_ref(
-                tops, lefts, s, s, bit_depth), plain_reps),
-            "satd_modes": cuda_ms(torch, lambda: S.satd_batch_ref(
-                blocks, pk, s, s), plain_reps),
-            "plan_trial": cuda_ms(torch, lambda: P.plan_trial_ref(*args3),
-                                  plain_reps),
-        }
-        rec["work"] = {n: work(n, B, s, k) for n in PLAN_KERNELS}
+        rec["ms"] = {n: cuda_ms(torch, c[0], reps) for n, c in calls.items()}
+        rec["plain_ms"] = {n: cuda_ms(torch, c[1], plain_reps)
+                           if plain_reps else None
+                           for n, c in calls.items()}
+        rec["work"] = {n: work(n, B, s, k) for n in CLASS_KERNELS}
         rec["bound_ms"] = {n: bound_ms(*rec["work"][n])[0]
-                           for n in PLAN_KERNELS}
+                           for n in CLASS_KERNELS}
         rec["k3_int32_bound_ms"] = rec["bound_ms"]["plan_trial"]
-        rec["bound_ms"]["plan_trial"], rec["k3_bound_by"] = plan_bound_ms(
-            B, s, k)
+        rec["bound_by"] = {n: bound_ms(*rec["work"][n])[1]
+                           for n in CLASS_KERNELS}
+        for n in ("plan_trial", "plan_trial_refs"):
+            rec["bound_ms"][n], rec["bound_by"][n] = plan_bound_ms(B, s, k,
+                                                                   n)
         recs.append(rec)
-        mk_all.append(mk.cpu().numpy())
-        ck_all.append(ck.cpu().numpy())
-        mr_all.append(mr.cpu().numpy())
-        cr_all.append(cr.cpu().numpy())
+        for key, (m_, c_) in (("route", (fmk, fck)), ("old", (mk, ck)),
+                              ("plain", (mr, cr))):
+            out[key].append((m_.cpu().numpy(), c_.cpu().numpy()))
         del pk, pr, sk, sr
     cat = np.concatenate
-    return recs, (cat(mk_all), cat(ck_all)), (cat(mr_all), cat(cr_all))
+    return recs, {key: (cat([a for a, _ in v]), cat([b for _, b in v]))
+                  for key, v in out.items()}
+
+
+def class_sums(recs, what: str = "ms") -> dict:
+    """The per-kernel sum over a run's classes of rec[what]."""
+    return {n: sum(r[what][n] for r in recs) if all(
+        r[what][n] is not None for r in recs) else None
+        for n in CLASS_KERNELS}
+
+
+def print_classes(recs) -> None:
+    def f(v):
+        return "not timed" if v is None else f"{v:.4f}"
+    for r in recs:
+        print(f"  class {r['s']:2d} B={r['B']:6d}: " + ", ".join(
+            f"{n} {r['ms'][n]:.4f} ms (plain {f(r['plain_ms'][n])}, bound "
+            f"{r['bound_ms'][n]:.4f} {r['bound_by'][n]})"
+            for n in CLASS_KERNELS), flush=True)
+
+
+def build_plans_phase(torch, dev, report):
+    """build_plans on config 1's batch (10 frames of 416x240) and on
+    1080p faster's (4 frames), through device planning's route and
+    through K1 -> K2 -> K3 (the route before it, put back in
+    _plan_class_core for the comparison), in turns (route, old, old,
+    route): host milliseconds to the fetched tables, the peak of
+    torch.cuda.max_memory_allocated above the allocation before the call,
+    and the plan tables of the two equal."""
+    from vvenc_tpu_torch.encoder.intra_encoder import (EncoderConfig,
+                                                       lambda_for_qp)
+    from vvenc_tpu_torch.ops import intra_plan as P
+    from vvenc_tpu_torch.ops import intra_presel as S
+
+    def old_core(src, tops, lefts, lm, ls, w, h, qp, bd, mts, k):
+        preds = S.predict_all_modes(tops, lefts, w, h, bd)
+        satd = S.satd_batch(src, preds, w, h)
+        return P.plan_trial(src, preds, satd, lm, ls, w, h, qp, bd, mts, k)
+
+    slice_qp = 37 + EncoderConfig.intra_qp_offset
+    out = {}
+    for tag, W, H, F in (("config1", 416, 240, 10),
+                         ("hd_faster", 1920, 1080, 4)):
+        srcs = luma_frames(W, H, F, 10, seed=5)
+        lm = float(np.float32(lambda_for_qp(slice_qp, 10)))
+        ls = float(np.float32(lm) ** 0.5)
+        core = P._plan_class_core
+        rec = {"route": {"ms": [], "peak_bytes": []},
+               "k1_k2_k3": {"ms": [], "peak_bytes": []}}
+        tables = {}
+        for route in ("route", "k1_k2_k3", "k1_k2_k3", "route"):
+            P._plan_class_core = core if route == "route" else old_core
+            try:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                plans = P.build_plans(srcs, 10, 64, EncoderConfig.min_qt,
+                                      slice_qp + 12, [lm] * F, [ls] * F,
+                                      device=dev)
+                ms = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated() - base
+            finally:
+                P._plan_class_core = core
+            rec[route]["ms"].append(ms)
+            rec[route]["peak_bytes"].append(peak)
+            tables[route] = plans
+        for f in range(F):
+            a, b = tables["route"][f].tables, tables["k1_k2_k3"][f].tables
+            if set(a) != set(b) or any(
+                    not np.array_equal(x, y) for key in a
+                    for x, y in zip(a[key], b[key])):
+                fail(f"build_plans {tag}: the route's plan tables differ "
+                     f"from K1 -> K2 -> K3's at frame {f}")
+        out[tag] = rec
+        print(f"phase 3: build_plans {tag} ({F} x {W}x{H}, 10-bit): plan "
+              f"tables of the route equal to K1 -> K2 -> K3's; route "
+              f"{min(rec['route']['ms']):.3f} ms, peak "
+              f"{max(rec['route']['peak_bytes']) / 1e6:.1f} MB above the "
+              f"call; K1 -> K2 -> K3 {min(rec['k1_k2_k3']['ms']):.3f} ms, "
+              f"peak {max(rec['k1_k2_k3']['peak_bytes']) / 1e6:.1f} MB "
+              f"(min time and max peak of 2, in turns)", flush=True)
+    report["build_plans"] = out
 
 
 def run_presel(torch, dev, pic, bd, reps, plain_reps):
@@ -920,6 +1070,7 @@ def api_phase(torch, kernels, clips, tmp, report):
         missing = [k for k in need if launches[k] < 1]
         if missing:
             fail(f"{tag}: {missing} never launched: {launches}")
+        no_old_route(tag, launches)
         cfg = config()
         apply_derived(cfg)
         batch = IntraEncoder(encoder_config_from(cfg, None)).encode_sequence(
@@ -952,6 +1103,7 @@ def api_phase(torch, kernels, clips, tmp, report):
     if ffapp.main(["-c", cfgf, "--verify"]) != 0:
         fail("ffapp: the encode returned non-zero (--verify mismatch?)")
     windows["ffapp"] = dict(kernels.launches)
+    no_old_route("ffapp", windows["ffapp"])
     with open(out, "rb") as f:
         a = f.read()
     with open(os.path.join(tmp, "config1.266"), "rb") as f:
@@ -1127,6 +1279,7 @@ def mesh_phase(torch, dev, kernels, clips, pic, report):
         if missing:
             fail(f"{tag} with {hook.__name__}.MESH: {missing} never "
                  f"launched: {launches}")
+        no_old_route(f"{tag} with {hook.__name__}.MESH", launches)
         enc_launches[tag] = launches
         d = os.path.dirname(clip)
         with open(os.path.join(d, f"{tag}.266"), "rb") as f:
@@ -1168,6 +1321,7 @@ def encode_phase(torch, kernels, DEV, tag, clip, w, h, frames, qp, preset,
     missing = [n for n in need if launches[n] < 1]
     if missing:
         fail(f"{tag}: {missing} never launched: {launches}")
+    no_old_route(tag, launches)
     print(f"phase 4: {tag} {w}x{h} x{frames} QP{qp} {preset} "
           f"{' '.join(extra)}: {frames / secs:.3f} fps (encode "
           f"{secs:.3f} s), device-time share {share:.4f}, launches "
@@ -1286,7 +1440,8 @@ def print_resources() -> dict:
     from vvenc_tpu_torch.ops import kernels
     from vvenc_tpu_torch.ops.tables import presel_mode_tables
     out = {}
-    rows = [("plan_trial", "vt_plan_trial_attrs", (s, s))
+    rows = [(name, f"vt_{name}_attrs", (s, s))
+            for name in ("plan_trial", "plan_trial_refs")
             for s in (4, 8, 16, 32, 64)]
     rows += [(f"presel_costs{'_gathered' if g else ''}",
               "vt_presel_costs_attrs",
@@ -1304,10 +1459,12 @@ def print_resources() -> dict:
 
 
 def k3_k4_phase(torch, dev, report):
-    """Phase 3's K1-K3 (1080p at 8 and 10 bits, config 1's plan batch)
-    and K4 (both entries, a 1080p 10-bit picture and an 832x480 8-bit
-    crop) against their plain versions, timed per class, with the
-    resources of K3's and K4's kernels per class."""
+    """Phase 3's planning kernels (the fused route beside K1 -> K2 ->
+    K3; 1080p at 8 and 10 bits, config 1's plan batch and one of its
+    pictures; build_plans through both routes) and K4 (both entries, a
+    1080p 10-bit picture and an 832x480 8-bit crop) against their plain
+    versions, timed per class, with the resources of K3's and K4's
+    kernels per class."""
     from vvenc_tpu_torch.encoder.intra_encoder import (EncoderConfig,
                                                        lambda_for_qp)
     from vvenc_tpu_torch.ops import intra_plan as P
@@ -1317,6 +1474,40 @@ def k3_k4_phase(torch, dev, report):
     slice_qp = 37 + EncoderConfig.intra_qp_offset
     sizes = (4, 8, 16, 32, 64)
 
+    def report_run(what, recs, runs, sizes, W, H, lmbdas):
+        """Plan tables of the route and of K1 -> K2 -> K3 against the
+        plain versions' (flips counted, only at near-ties), then the
+        per-class lines and the class sums."""
+        flips = compare_plans(sizes, W, H, lmbdas, runs["route"],
+                              runs["plain"])
+        old_flips = compare_plans(sizes, W, H, lmbdas, runs["old"],
+                                  runs["plain"])
+        ms = class_sums(recs)
+        bounds = class_sums(recs, "bound_ms")
+        print(f"phase 3: {what}: the fused SATD (presel_costs) bit-exact "
+              f"to K2(K1(...)) and K1/K2 to their plain versions; K3 "
+              f"plan_trial_refs and plan_trial modes equal to the plain "
+              f"version's, costs max rel err "
+              f"{max(r['plan_trial_refs_max_rel_err'] for r in recs):.3g} "
+              f"and {max(r['plan_trial_max_rel_err'] for r in recs):.3g}; "
+              f"plan tables equal with {flips} near-tie flips (K1 -> K2 -> "
+              f"K3: {old_flips}); class sums: planning SATD "
+              f"{ms['presel_costs_gathered']:.4f} ms (bound "
+              f"{bounds['presel_costs_gathered']:.4f}) against K1 + K2 "
+              f"{ms['intra_pred_all'] + ms['satd_modes']:.4f} (bounds "
+              f"{bounds['intra_pred_all']:.4f} + "
+              f"{bounds['satd_modes']:.4f}); K3 plan_trial_refs "
+              f"{ms['plan_trial_refs']:.4f} (bound "
+              f"{bounds['plan_trial_refs']:.4f}) against plan_trial "
+              f"{ms['plan_trial']:.4f} (bound {bounds['plan_trial']:.4f}, "
+              f"int32 yardstick "
+              f"{sum(r['k3_int32_bound_ms'] for r in recs):.4f}); route "
+              f"{ms['presel_costs_gathered'] + ms['plan_trial_refs']:.4f} "
+              f"ms against K1 -> K2 -> K3 "
+              f"{sum(ms[n] for n in OLD_PLAN_KERNELS):.4f}", flush=True)
+        print_classes(recs)
+        return flips, old_flips
+
     # phase 3: kernels against plain versions at 1080p, 8 and 10 bits
     W, H, F = 1920, 1080, 4
     report["phase3"] = []
@@ -1324,45 +1515,35 @@ def k3_k4_phase(torch, dev, report):
         qp = slice_qp + 6 * (bd - 8)
         lmbda = float(np.float32(lambda_for_qp(slice_qp, bd)))
         srcs = luma_frames(W, H, F, bd, seed=11 + bd)
-        recs, kern, plain = run_classes(
+        recs, runs = run_classes(
             torch, dev, srcs, bd, qp, lmbda, sizes, True, k, reps=3,
-            plain_reps=1, check=True)
-        flips = compare_plans(sizes, W, H, [lmbda] * F, kern, plain)
-        print(f"phase 3: {W}x{H} x{F}, {bd}-bit: K1/K2 bit-exact, K3 "
-              f"modes equal, costs max rel err "
-              f"{max(r['k3_max_rel_err'] for r in recs):.3g}; plan tables "
-              f"equal with {flips} near-tie flips", flush=True)
-        for r in recs:
-            print(f"  class {r['s']:2d} B={r['B']:6d}: " + ", ".join(
-                f"{n} {r['ms'][n]:.3f} ms (plain {r['plain_ms'][n]:.3f}, "
-                f"bound {r['bound_ms'][n]:.3f})" for n in PLAN_KERNELS))
-        print(f"  K3 plan_trial class sum {bd}-bit: "
-              f"{sum(r['ms']['plan_trial'] for r in recs):.4f} ms (bound "
-              f"{sum(r['bound_ms']['plan_trial'] for r in recs):.4f}, 16..64 "
-              f"on the int8 tensor cores; int32 yardstick "
-              f"{sum(r['k3_int32_bound_ms'] for r in recs):.4f})", flush=True)
+            plain_reps=0, check=True)
+        flips, old_flips = report_run(f"{W}x{H} x{F}, {bd}-bit", recs, runs,
+                                      sizes, W, H, [lmbda] * F)
         report["phase3"].append({"bit_depth": bd, "flips": flips,
-                                 "classes": recs})
+                                 "old_flips": old_flips, "classes": recs})
 
     # the main path's shape: config 1's frame-parallel all-intra encode
     # plans its 10 frames in one batch (416x240, 10-bit internal,
-    # classes min QT .. 64, one launch of each kernel per class)
+    # classes min QT .. 64, one launch of each kernel per class); a
+    # streaming encode (VVEncImpl) plans one picture at a time
     cw, ch, cbd, cf = 416, 240, 10, 10
     csizes = tuple(P._plan_sizes(cw, ch, 64, EncoderConfig.min_qt))
     clmbda = float(np.float32(lambda_for_qp(slice_qp, cbd)))
     csrcs = luma_frames(cw, ch, cf, cbd, seed=1)
-    crecs, ckern, cplain = run_classes(
-        torch, dev, csrcs, cbd, slice_qp + 6 * (cbd - 8), clmbda, csizes,
-        True, k, reps=50, plain_reps=5, check=True)
-    cflips = compare_plans(csizes, cw, ch, [clmbda] * cf, ckern, cplain)
-    print(f"phase 3: config 1's plan batch ({cf} x {cw}x{ch}, {cbd}-bit): "
-          f"K1-K3 as at 1080p, {cflips} near-tie flips; " + ", ".join(
-              f"{n} {sum(r['ms'][n] for r in crecs):.4f} ms" for n in
-              PLAN_KERNELS) + "; K3 per class " + ", ".join(
-              f"{r['s']}: {r['ms']['plan_trial']:.4f} (bound "
-              f"{r['bound_ms']['plan_trial']:.4f}, int32 yardstick "
-              f"{r['k3_int32_bound_ms']:.4f})" for r in crecs), flush=True)
-    report["config1_batch"] = crecs
+    for tag, frames, plain_reps in (("config1_batch", csrcs, 5),
+                                    ("config1_picture", csrcs[:1], 0)):
+        recs, runs = run_classes(
+            torch, dev, frames, cbd, slice_qp + 6 * (cbd - 8), clmbda,
+            csizes, True, k, reps=50, plain_reps=plain_reps, check=True)
+        flips, old_flips = report_run(
+            f"config 1's plan {'batch' if len(frames) > 1 else 'picture'} "
+            f"({len(frames)} x {cw}x{ch}, {cbd}-bit)", recs, runs, csizes,
+            cw, ch, [clmbda] * len(frames))
+        report[tag] = {"flips": flips, "old_flips": old_flips,
+                       "classes": recs}
+    crecs = report["config1_batch"]["classes"]
+    build_plans_phase(torch, dev, report)
 
     # phase 3, K4: one 1080p 10-bit picture, every MTT class (the medium
     # all-intra path's shape), and an 832x480 8-bit crop
@@ -1538,11 +1719,13 @@ def main(argv=None) -> int:
                                report)
 
     # phase 5: one line per kernel entry; launches from the path run
-    # that reaches it (K1-K3 VVEncImpl streaming config 1, K4 the 1080p
+    # that reaches it (K3's reference entry VVEncImpl streaming config 1,
+    # where the preds-form K3 shows its 0; K1 and K2, which no encode path
+    # launches, dryrun_multichip(4) through search_step; K4 the 1080p
     # medium all-intra encode, K5 VVEncImpl streaming config 2, K4's
     # gathered entry that encode with intra_presel.MESH set, K6 and K7
     # dryrun_multichip(4), K8-K11 the full-width calls of their public
-    # functions)
+    # functions); K1-K3's times are config 1's plan batch
     entries = []
     for n, (src, replaces) in KERNELS.items():
         if n in BATCH_KERNELS:
@@ -1551,19 +1734,18 @@ def main(argv=None) -> int:
             path = "dist_batch" if n in ("sse_batch", "sad_batch",
                                          "satd_batch") else n
             nl = batch["launches"][path][n]
-        elif n in PLAN_KERNELS:
+        elif n in OLD_PLAN_KERNELS or n == "plan_trial_refs":
             ms = sum(r["ms"][n] for r in crecs)
             plain_ms = sum(r["plain_ms"][n] for r in crecs)
-            bms, by = bound_ms(sum(r["work"][n][0] for r in crecs),
-                               sum(r["work"][n][1] for r in crecs))
-            if n == "plan_trial":
-                # per class, as the kernel computes it (plan_bound_ms)
-                bms = sum(r["bound_ms"][n] for r in crecs)
-                by = max(("bytes", "operations"), key=lambda b: sum(
-                    r["bound_ms"][n] for r in crecs if r["k3_bound_by"] == b))
-            err = max(r["k3_max_abs_err"] for r in crecs) \
-                if n == "plan_trial" else 0.0
-            nl = api_launches["api_config1"][n]
+            # per class (K3's as the kernel computes it, plan_bound_ms)
+            bms = sum(r["bound_ms"][n] for r in crecs)
+            by = max(("bytes", "operations"), key=lambda b: sum(
+                r["bound_ms"][n] for r in crecs if r["bound_by"][n] == b))
+            err = max(r[f"{n}_max_abs_err"] for r in crecs) \
+                if n in ("plan_trial", "plan_trial_refs") else 0.0
+            nl = mesh_launches["dryrun"][n] if n in (
+                "intra_pred_all", "satd_modes") else \
+                api_launches["api_config1"][n]
         elif n == "presel_costs":
             ms, plain_ms, bms, by, err = pms, sum(
                 r["plain_ms"] for r in precs), pbound, pby, 0.0

@@ -32,6 +32,8 @@ def test_import_closure_has_no_jax_and_no_vvenc_tpu():
         "import vvenc_tpu_torch, vvenc_tpu_torch.__main__\n"
         "import vvenc_tpu_torch.ops.intra_plan, vvenc_tpu_torch.native\n"
         "import vvenc_tpu_torch.decoder, vvenc_tpu_torch.ops.tables\n"
+        "import vvenc_tpu_torch.ops.rdoq, vvenc_tpu_torch.ops.depquant\n"
+        "import vvenc_tpu_torch.encoder.filmgrain\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'vvenc_tpu'))\n"
         "print(repr(bad))\n")

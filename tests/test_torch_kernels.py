@@ -439,3 +439,121 @@ def test_plan_trial_ties_top_k_and_qp_extremes(cuda, w, h, k, qp):
     assert kernels.launches["plan_trial"] == n + 1
     assert torch.equal(mk, mr)
     torch.testing.assert_close(ck, cr, rtol=1e-5, atol=0)
+
+
+def _class_batch(cuda, s, bd, B, seed):
+    """Planning's class inputs (ops/intra_plan._class_inputs) of edge-padded
+    random-walk planes, cut or tiled to B candidates."""
+    rng = np.random.RandomState(seed)
+    top = (1 << bd) - 1
+    W, H = 256, 128
+    walk = np.cumsum(rng.randint(-9, 10, (2, H, W)), axis=2)
+    srcs = np.clip(walk + top // 2 + rng.randint(-20, 21, (2, H, W)), 0,
+                   top).astype(np.int16)
+    srcs[0, :8] = top                         # clip paths
+    srcs[1, :8] = 0
+    planes = torch.from_numpy(np.stack(
+        [np.pad(x, P.PAD, mode="edge") for x in srcs])).to(cuda)
+    blocks, tops, lefts = P._class_inputs(planes, s, W, H)
+    idx = torch.arange(B, device=cuda) % blocks.shape[0]
+    lm = torch.from_numpy(rng.uniform(10, 100, B).astype(np.float32)) \
+        .to(cuda)
+    return blocks[idx], tops[idx], lefts[idx], lm, lm.sqrt()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("s", [4, 8, 16, 32, 64])
+def test_fused_satd_on_class_inputs_equals_k2_of_k1(cuda, s, bd):
+    """K4's gathered entry on planning's class inputs is K2(K1(...)) bit
+    for bit: the planning route's SATD."""
+    blocks, tops, lefts, _, _ = _class_batch(cuda, s, bd, 301, s + bd)
+    n = dict(kernels.launches)
+    fused = S.presel_costs(blocks, tops, lefts, s, s, bd)
+    two = S.satd_batch(blocks, S.predict_all_modes(tops, lefts, s, s, bd),
+                       s, s)
+    torch.cuda.synchronize()
+    assert kernels.launches["presel_costs_gathered"] == \
+        n["presel_costs_gathered"] + 1
+    assert torch.equal(fused, two)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [0, 37, 51])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("B", [0, 1, 37])
+@pytest.mark.parametrize("s", [4, 8, 16, 32, 64])
+def test_plan_trial_refs_matches_plain(cuda, s, B, bd, qp):
+    """K3's reference entry against its plain version (modes equal, costs
+    within rtol 1e-5) and against the preds-form K3 on K1's predictions
+    (modes and costs equal: the survivors' predictions are K1's
+    integers), at every square class, 8 and 10 bits, QP 0/37/51, with B
+    of 0, 1 and a ragged 37 (the warp route's blocks hold 8)."""
+    blocks, tops, lefts, lm, ls = _class_batch(cuda, s, bd, B,
+                                               s * 7 + B + qp + bd)
+    satd = S.presel_costs(blocks, tops, lefts, s, s, bd)
+    n = kernels.launches["plan_trial_refs"]
+    mk, ck = P.plan_trial_refs(blocks, tops, lefts, satd, lm, ls, s, s, qp,
+                               bd, True, 2)
+    mr, cr = P.plan_trial_refs_ref(blocks, tops, lefts, satd, lm, ls, s, s,
+                                   qp, bd, True, 2)
+    preds = S.predict_all_modes(tops, lefts, s, s, bd)
+    mp, cp = P.plan_trial(blocks, preds, satd, lm, ls, s, s, qp, bd, True, 2)
+    torch.cuda.synchronize()
+    assert kernels.launches["plan_trial_refs"] == n + (1 if B else 0)
+    assert mk.shape == (B, 2) and ck.shape == (B, 2)
+    assert torch.equal(mk, mr) and torch.equal(mk, mp)
+    assert torch.equal(ck, cp)
+    torch.testing.assert_close(ck, cr, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (32, 32),
+                                 (64, 64), (16, 8), (8, 4)])
+def test_plan_trial_refs_ties_and_rectangles(cuda, w, h, k):
+    """Tied SATD rows (ties to the lowest mode), k = 1 and 3, and two
+    rectangular classes (the warp route, references LPAD wide)."""
+    rng = np.random.RandomState(w + 5 * h + k)
+    B, bd = 29, 10
+    tops, lefts, src = (torch.from_numpy(a).to(cuda)
+                        for a in _refs(rng, B, w, h, bd))
+    satd = torch.from_numpy(rng.randint(0, 4000, (B, 67)).astype(np.int32))
+    satd[1] = 777
+    satd[2, ::3] = 5
+    satd = satd.to(cuda)
+    lm = torch.from_numpy(rng.uniform(10, 100, B).astype(np.float32)) \
+        .to(cuda)
+    args = (src, tops, lefts, satd, lm, lm.sqrt())
+    mk, ck = P.plan_trial_refs(*args, w, h, 37, bd, True, k)
+    mr, cr = P.plan_trial_refs_ref(*args, w, h, 37, bd, True, k)
+    torch.cuda.synchronize()
+    assert torch.equal(mk, mr)
+    assert mk[1].tolist() == list(range(k))
+    torch.testing.assert_close(ck, cr, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_plan_class_core_on_the_card_writes_no_predictions(cuda):
+    """_plan_class_core on a CUDA device: the fused SATD and K3's
+    reference entry, one launch each, no K1 or K2, and no [B, 67, h, w]
+    buffer (peak memory well under its size); the result equals the CPU
+    route's."""
+    s, bd, B = 8, 10, 4096
+    blocks, tops, lefts, lm, ls = _class_batch(cuda, s, bd, B, 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    mk, ck = P._plan_class_core(blocks, tops, lefts, lm, ls, s, s, 43, bd,
+                                True, 2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert {k: v for k, v in kernels.launches.items() if v} == {
+        "presel_costs_gathered": 1, "plan_trial_refs": 1}
+    assert peak < B * 67 * s * s * 2 // 4
+    mr, cr = P._plan_class_core(*(x.cpu() for x in (blocks, tops, lefts, lm,
+                                                     ls)), s, s, 43, bd, True,
+                                2)
+    assert torch.equal(mk.cpu(), mr)
+    torch.testing.assert_close(ck.cpu(), cr, rtol=1e-5, atol=0)

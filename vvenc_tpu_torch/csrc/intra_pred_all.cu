@@ -21,133 +21,44 @@
 // (coalesced stores), and the small per-mode tables are read through the
 // read-only cache.  The chunks keep the card full when a batch holds few
 // large blocks (a 64x64 candidate is 134 chunks).
+// The per-sample arithmetic is intra_pred.cuh's, which K3's reference
+// entry (plan_trial.cu) shares.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "intra_pred.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 8 * kThreads;  // output samples per thread block
-constexpr int kFlagVer = 1, kFlagPdpc = 2, kFlagAng0 = 4;  // ops/tables.py
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-__device__ __forceinline__ int log2i(int v) { return 31 - __clz(v); }
 
 __global__ void __launch_bounds__(kThreads) intra_pred_all_kernel(
     const int* __restrict__ tops, int tops_stride,
     const int* __restrict__ lefts, int lefts_stride,
     int16_t* __restrict__ out, int w, int h, int bit_depth,
-    const int* __restrict__ rm_flat, const int* __restrict__ row_start,
-    const int* __restrict__ filt, const int* __restrict__ mode_info,
-    const int* __restrict__ pdpc_wl, const int* __restrict__ side_flat,
-    int LPAD, int LR, int TM, int B0) {
-  // pool = [top | ftop | left | fleft], LPAD int32 samples each; the
-  // angular modes read it through an int16 cast, as the reference's
-  // int16 pool does; planar and DC read the int32 values
+    const intra_pred::Tables t) {
+  // the candidate's pool [top | ftop | left | fleft] (intra_pred.cuh)
   extern __shared__ int pool[];
   __shared__ int s_dc;
   const int b = blockIdx.x;
-  const int* tp = tops + (size_t)b * tops_stride;
-  const int* lp = lefts + (size_t)b * lefts_stride;
-  int* top = pool;
-  int* ftop = pool + LPAD;
-  int* left = pool + 2 * LPAD;
-  int* fleft = pool + 3 * LPAD;
-  const int maxval = (1 << bit_depth) - 1;
-
-  for (int j = threadIdx.x; j < LPAD; j += blockDim.x) {
-    top[j] = tp[j];
-    left[j] = lp[j];
-  }
+  intra_pred::pool_load(tops + (size_t)b * tops_stride,
+                        lefts + (size_t)b * lefts_stride, pool, t.LPAD,
+                        threadIdx.x, blockDim.x);
   __syncthreads();
-  const int corner = (top[0] + top[1] + left[0] + left[1] + 2) >> 2;
-  const int n = 2 * w, m = 2 * h;
-  for (int j = threadIdx.x; j < LPAD; j += blockDim.x) {
-    ftop[j] = j == 0 ? corner
-              : j < n ? (top[j - 1] + 2 * top[j] + top[j + 1] + 2) >> 2
-                      : top[n];
-    fleft[j] = j == 0 ? corner
-               : j < m ? (left[j - 1] + 2 * left[j] + left[j + 1] + 2) >> 2
-                       : left[m];
-  }
-  if (threadIdx.x == 0) {
-    // DC: average of both sides (square) or of the longer side only
-    const int denom = w == h ? (w << 1) : max(w, h);
-    int s = 0;
-    if (w >= h)
-      for (int x = 1; x <= w; ++x) s += top[x];
-    if (w <= h)
-      for (int y = 1; y <= h; ++y) s += left[y];
-    s_dc = (s + (denom >> 1)) >> log2i(denom);
-  }
+  intra_pred::pool_filter(pool, t.LPAD, w, h, threadIdx.x, blockDim.x);
+  if (threadIdx.x == 0) s_dc = intra_pred::pool_dc(pool, t.LPAD, w, h);
   __syncthreads();
 
-  const int log2w = log2i(w), log2h = log2i(h);
   const int hw = h * w;
-  // planar MDIS: filtered references when w*h > 32
-  const int* pt = w * h > 32 ? ftop : top;
-  const int* pl = w * h > 32 ? fleft : left;
-  // planar/DC PDPC weight scale
-  const int pscale = (log2i(w * h) - 2) >> 2;
   int16_t* ob = out + (size_t)b * 67 * hw;
-
   const int end = min(67 * hw, (int)(blockIdx.y + 1) * kChunk);
   for (int i = blockIdx.y * kChunk + threadIdx.x; i < end; i += blockDim.x) {
     const int mode = i / hw;
     const int r = i - mode * hw;
     const int yy = r / w, xx = r - (r / w) * w;
-    int v;
-    if (mode < 2) {
-      const int* ptop = mode == 0 ? pt : top;
-      const int* pleft = mode == 0 ? pl : left;
-      if (mode == 0) {
-        const int lc = pleft[1 + yy], trr = ptop[1 + xx];
-        const int tr = ptop[1 + w], br = pleft[1 + h];
-        const int hor = lc * (1 << log2w) + (xx + 1) * (tr - lc);
-        const int ver = trr * (1 << log2h) + (yy + 1) * (br - trr);
-        v = (hor * (1 << log2h) + ver * (1 << log2w) +
-             (1 << (log2w + log2h))) >> (1 + log2w + log2h);
-      } else {
-        v = s_dc;
-      }
-      const int wt = 32 >> min(31, (yy << 1) >> pscale);
-      const int wl = 32 >> min(31, (xx << 1) >> pscale);
-      v = v + ((wl * (pleft[1 + yy] - v) + wt * (ptop[1 + xx] - v) + 32) >> 6);
-      v = clampi(v, 0, maxval);
-    } else {
-      const int mi = mode - 2;
-      const int shift = __ldg(mode_info + 4 * mi);
-      const int rnd = __ldg(mode_info + 4 * mi + 1);
-      const int flags = __ldg(mode_info + 4 * mi + 2);
-      // main orientation: rows run along the mode's side
-      const bool ver = flags & kFlagVer;
-      const int row = ver ? yy : xx, col = ver ? xx : yy;
-      const int* rm = rm_flat + mi * LR + __ldg(row_start + mi * TM + row) + col;
-      const int* f = filt + (mi * TM + row) * 4;
-      int acc = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        acc += __ldg(f + k) * (int)(int16_t)pool[__ldg(rm + k)];
-      v = clampi((acc + rnd) >> shift, 0, maxval);
-      if (flags & kFlagPdpc) {
-        const int wl = __ldg(pdpc_wl + mi * TM + col);
-        if (wl != 0) {
-          const int lval =
-              (int16_t)pool[__ldg(side_flat + (mi * TM + row) * TM + col)];
-          if (flags & kFlagAng0) {
-            const int tl = (int16_t)pool[__ldg(rm_flat + mi * LR + B0)];
-            v = clampi(v + ((wl * (lval - tl) + 32) >> 6), 0, maxval);
-          } else {
-            v = v + ((wl * (lval - v) + 32) >> 6);
-          }
-        }
-      }
-      v = clampi(v, 0, maxval);
-    }
-    ob[i] = (int16_t)v;
+    ob[i] = (int16_t)intra_pred::pred_sample(pool, s_dc, t, w, h, bit_depth,
+                                             mode, yy, xx);
   }
 }
 
@@ -168,11 +79,13 @@ extern "C" int vt_intra_pred_all(
     int B0, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   const dim3 grid(B, (67 * w * h + kChunk - 1) / kChunk);
+  const intra_pred::Tables t{(const int*)rm_flat, (const int*)row_start,
+                             (const int*)filt, (const int*)mode_info,
+                             (const int*)pdpc_wl, (const int*)side_flat,
+                             LPAD, LR, TM, B0};
   intra_pred_all_kernel<<<grid, kThreads, 4 * LPAD * sizeof(int),
                           (cudaStream_t)stream>>>(
       (const int*)tops, tops_stride, (const int*)lefts, lefts_stride,
-      (int16_t*)out, w, h, bit_depth, (const int*)rm_flat,
-      (const int*)row_start, (const int*)filt, (const int*)mode_info,
-      (const int*)pdpc_wl, (const int*)side_flat, LPAD, LR, TM, B0);
+      (int16_t*)out, w, h, bit_depth, t);
   return (int)cudaGetLastError();
 }

@@ -51,9 +51,21 @@
 //   uses): one warp per candidate, eight to a block, the products on
 //   the CUDA cores from per-warp planes at odd strides with the
 //   transposed matrices, KC = 32 / (w h) survivors side by side.
+//
+// Two entries share these kernels.  vt_plan_trial reads the k survivors'
+// predictions from K1's [B, 67, h, w] output.  vt_plan_trial_refs takes
+// the candidates' reference rows (tops / lefts, int32 [B, >= LPAD])
+// instead: each candidate (block or warp) stages its reference pool in
+// shared memory (4 x LPAD ints, 2.1 KB at 64x64) and, after the ranking,
+// predicts only its k survivors there with K1's own per-sample arithmetic
+// (intra_pred.cuh), so the planning path never writes the 67 predictions
+// to device memory.  The SATD it ranks by then comes from K4's gathered
+// entry (presel_costs.cu), which fuses K1 and K2.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "intra_pred.cuh"
 
 namespace {
 
@@ -69,7 +81,11 @@ struct TrialParams {
 
 struct Inputs {
   const int* src;
-  const int16_t* preds;
+  const int16_t* preds;     // vt_plan_trial
+  const int* tops;          // vt_plan_trial_refs: [B, Lt] and [B, Ll]
+  const int* lefts;
+  int Lt, Ll, bit_depth;
+  intra_pred::Tables pt;    // K1's tables of the class
   const int* satd;
   const float* lmbda;
   const float* lmbda_sad;
@@ -276,7 +292,7 @@ __device__ __forceinline__ void put_split(uint32_t* hi, uint32_t* lo, int r,
   reinterpret_cast<uint8_t*>(lo)[o] = (uint8_t)(x & 255);
 }
 
-template <int S>
+template <int S, bool REFS>
 __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
     const Inputs in, const TrialParams p) {
   using G = TcGeom<S>;
@@ -294,6 +310,9 @@ __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
   uint32_t* y_lo = y_hi + G::PLANE;
   int* s_src = reinterpret_cast<int*>(y_lo + G::PLANE);      // [S][S]
   int16_t* s_pred = reinterpret_cast<int16_t*>(s_src + S * S);  // [2][S*S]
+  // REFS: the candidate's reference pool [4][LPAD] (intra_pred.cuh)
+  int* s_pool = reinterpret_cast<int*>(s_pred + 2 * S * S);
+  __shared__ int s_dc;
   __shared__ int s_top[kModes];
   __shared__ long long s_sse[NW];
   __shared__ int s_nnz[NW];
@@ -315,7 +334,16 @@ __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
     reinterpret_cast<int8_t*>(m_thT)[c * G::RW * 4 + r] = th;   // th[y][v]
     s_src[i] = in.src[(size_t)b * S * S + i];
   }
+  if constexpr (REFS)
+    intra_pred::pool_load(in.tops + (size_t)b * in.Lt,
+                          in.lefts + (size_t)b * in.Ll, s_pool, in.pt.LPAD,
+                          tid, G::THREADS);
   __syncthreads();
+  if constexpr (REFS) {
+    intra_pred::pool_filter(s_pool, in.pt.LPAD, S, S, tid, G::THREADS);
+    if (tid == 0) s_dc = intra_pred::pool_dc(s_pool, in.pt.LPAD, S, S);
+    __syncthreads();
+  }
   auto fetch_pred = [&](int i) {
     const int16_t* pb = in.preds + ((size_t)b * p.M + s_top[i]) * S * S;
     int16_t* dst = s_pred + (i & 1) * S * S;
@@ -323,11 +351,19 @@ __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
       cp_async16(dst + 8 * j, pb + 8 * j);
     cp_async_commit();
   };
-  fetch_pred(0);
+  if constexpr (!REFS) fetch_pred(0);
   const float lm = in.lmbda[b];
   const bool zero_out = S > 32;
   for (int i = 0; i < p.k; ++i) {
-    if (i + 1 < p.k) {
+    if constexpr (REFS) {
+      // survivor i's prediction (its buffer was last read two survivors
+      // ago, behind the barriers of the one between)
+      int16_t* dst = s_pred + (i & 1) * S * S;
+      const int mode = s_top[i];
+      for (int j = tid; j < S * S; j += G::THREADS)
+        dst[j] = (int16_t)intra_pred::pred_sample(
+            s_pool, s_dc, in.pt, S, S, in.bit_depth, mode, j / S, j % S);
+    } else if (i + 1 < p.k) {
       fetch_pred(i + 1);
       cp_async_wait_all_but_one();
     } else {
@@ -433,9 +469,10 @@ __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
 }
 
 template <int S>
-size_t tc_smem() {
+size_t tc_smem(bool refs) {
   using G = TcGeom<S>;
-  return (size_t)8 * G::PLANE * 4 + (size_t)S * S * 4 + (size_t)2 * S * S * 2;
+  return (size_t)8 * G::PLANE * 4 + (size_t)S * S * 4 +
+         (size_t)2 * S * S * 2 + (refs ? (size_t)4 * (2 * S + 3) * 4 : 0);
 }
 
 // ---------------------------------------------------------------------
@@ -447,18 +484,24 @@ constexpr int kWarpThreads = 256;
 struct WarpGeom {
   int w, h, hw, kc;         // kc survivors side by side
   int hwp;                  // a plane's stride (odd)
+  int pool;                 // REFS: the pool's LPAD (else 0)
   int per_warp;             // ints of shared memory per warp
   int warps;                // warps (candidates) per block
 };
 
-WarpGeom warp_geom(int w, int h) {
+// lpad: the reference pool's segment length for vt_plan_trial_refs (each
+// warp then holds 4 x lpad pool ints and the DC value), 0 for
+// vt_plan_trial
+WarpGeom warp_geom(int w, int h, int lpad) {
   WarpGeom q;
   q.w = w;
   q.h = h;
   q.hw = w * h;
   q.kc = q.hw >= 32 ? 1 : 32 / q.hw;
   q.hwp = q.hw | 1;
-  q.per_warp = q.hwp * (1 + 3 * q.kc) + 4 * q.kc;   // src, kc x (pred, a, b)
+  q.pool = lpad;
+  // src, kc x (pred, a, b), the pass's modes, the pool and the DC value
+  q.per_warp = q.hwp * (1 + 3 * q.kc) + 4 * q.kc + (lpad ? 4 * lpad + 1 : 0);
   const int budget = 40 * 1024 / 4;                  // ints for the warps
   q.warps = budget / q.per_warp;
   q.warps = q.warps < 1 ? 1 : (q.warps > 8 ? 8 : q.warps);
@@ -470,6 +513,7 @@ size_t warp_smem(const WarpGeom& q) {
   return (size_t)(2 * q.w * q.w + 2 * q.h * q.h + q.warps * q.per_warp) * 4;
 }
 
+template <bool REFS>
 __global__ void __launch_bounds__(kWarpThreads) plan_trial_warp_kernel(
     const Inputs in, const TrialParams p, const WarpGeom q) {
   extern __shared__ int wsm[];
@@ -493,7 +537,17 @@ __global__ void __launch_bounds__(kWarpThreads) plan_trial_warp_kernel(
   int* base = s_thT + h * h + warp * q.per_warp;
   int* s_src = base;
   int* s_top = base + q.hwp * (1 + 3 * q.kc);        // [kc] modes of a pass
+  int* s_pool = s_top + 4 * q.kc;                    // REFS: [4][LPAD], DC
   for (int j = lane; j < hw; j += 32) s_src[j] = in.src[(size_t)b * hw + j];
+  if constexpr (REFS) {
+    const int L = q.pool;
+    intra_pred::pool_load(in.tops + (size_t)b * in.Lt,
+                          in.lefts + (size_t)b * in.Ll, s_pool, L, lane, 32);
+    __syncwarp();
+    intra_pred::pool_filter(s_pool, L, w, h, lane, 32);
+    if (lane == 0) s_pool[4 * L] = intra_pred::pool_dc(s_pool, L, w, h);
+    __syncwarp();
+  }
   // the ranking (into the per-warp list in turns of kc survivors)
   __shared__ int s_rank[8][kModes];
   rank_modes(in, p, b, s_rank[warp]);
@@ -508,8 +562,13 @@ __global__ void __launch_bounds__(kWarpThreads) plan_trial_warp_kernel(
     __syncwarp();
     for (int j = lane; j < live * hw; j += 32) {
       const int si = j / hw, jj = j - si * hw;
-      base[q.hwp * (1 + 3 * si) + jj] =
-          in.preds[((size_t)b * p.M + s_top[si]) * hw + jj];
+      if constexpr (REFS)
+        base[q.hwp * (1 + 3 * si) + jj] = intra_pred::pred_sample(
+            s_pool, s_pool[4 * q.pool], in.pt, w, h, in.bit_depth,
+            s_top[si], jj / w, jj - (jj / w) * w);
+      else
+        base[q.hwp * (1 + 3 * si) + jj] =
+            in.preds[((size_t)b * p.M + s_top[si]) * hw + jj];
     }
     __syncwarp();
     // forward rows: a[y][u] = sum_x r[y][x] tw[u][x]
@@ -589,18 +648,110 @@ Route route_for(int w, int h) {
   return kWarp;
 }
 
-const void* tc_kernel(Route r) {
-  return r == kTc16   ? (const void*)plan_trial_tc_kernel<16>
-         : r == kTc32 ? (const void*)plan_trial_tc_kernel<32>
-                      : (const void*)plan_trial_tc_kernel<64>;
+// the kernel, its shared memory and threads for a (w, h) class; lpad: the
+// reference pool's segment length of vt_plan_trial_refs (0 for
+// vt_plan_trial)
+struct Launch {
+  const void* f;
+  size_t shm;
+  int threads;
+  WarpGeom q;
+};
+
+Launch launch_for(int w, int h, int lpad) {
+  const bool refs = lpad > 0;
+  Launch l;
+  l.q = warp_geom(w, h, lpad);
+  switch (route_for(w, h)) {
+    case kTc16:
+      l.f = refs ? (const void*)plan_trial_tc_kernel<16, true>
+                 : (const void*)plan_trial_tc_kernel<16, false>;
+      l.shm = tc_smem<16>(refs);
+      l.threads = TcGeom<16>::THREADS;
+      break;
+    case kTc32:
+      l.f = refs ? (const void*)plan_trial_tc_kernel<32, true>
+                 : (const void*)plan_trial_tc_kernel<32, false>;
+      l.shm = tc_smem<32>(refs);
+      l.threads = TcGeom<32>::THREADS;
+      break;
+    case kTc64:
+      l.f = refs ? (const void*)plan_trial_tc_kernel<64, true>
+                 : (const void*)plan_trial_tc_kernel<64, false>;
+      l.shm = tc_smem<64>(refs);
+      l.threads = TcGeom<64>::THREADS;
+      break;
+    default:
+      l.f = refs ? (const void*)plan_trial_warp_kernel<true>
+                 : (const void*)plan_trial_warp_kernel<false>;
+      l.shm = warp_smem(l.q);
+      l.threads = kWarpThreads;
+  }
+  return l;
 }
 
-size_t tc_bytes(Route r) {
-  return r == kTc16 ? tc_smem<16>() : r == kTc32 ? tc_smem<32>() : tc_smem<64>();
+int launch(const Inputs& in, const TrialParams& p, int lpad, void* stream) {
+  cudaGetLastError();  // clear a stale error so the return is this launch's
+  if (p.k < 1 || p.k > p.M || p.M > kModes || in.B < 1)
+    return (int)cudaErrorInvalidValue;
+  const Launch l = launch_for(p.w, p.h, lpad);
+  cudaError_t e = cudaFuncSetAttribute(
+      l.f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.shm);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int B = in.B;
+  const bool refs = lpad > 0;
+  switch (route_for(p.w, p.h)) {
+    case kTc16:
+      if (refs)
+        plan_trial_tc_kernel<16, true><<<B, l.threads, l.shm, st>>>(in, p);
+      else
+        plan_trial_tc_kernel<16, false><<<B, l.threads, l.shm, st>>>(in, p);
+      break;
+    case kTc32:
+      if (refs)
+        plan_trial_tc_kernel<32, true><<<B, l.threads, l.shm, st>>>(in, p);
+      else
+        plan_trial_tc_kernel<32, false><<<B, l.threads, l.shm, st>>>(in, p);
+      break;
+    case kTc64:
+      if (refs)
+        plan_trial_tc_kernel<64, true><<<B, l.threads, l.shm, st>>>(in, p);
+      else
+        plan_trial_tc_kernel<64, false><<<B, l.threads, l.shm, st>>>(in, p);
+      break;
+    default: {
+      const int grid = (B + l.q.warps - 1) / l.q.warps;
+      if (refs)
+        plan_trial_warp_kernel<true><<<grid, l.threads, l.shm, st>>>(in, p,
+                                                                     l.q);
+      else
+        plan_trial_warp_kernel<false><<<grid, l.threads, l.shm, st>>>(in, p,
+                                                                      l.q);
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
-int tc_threads(Route r) {
-  return r == kTc16 ? TcGeom<16>::THREADS : TcGeom<64>::THREADS;
+int attrs(int w, int h, int lpad, int* out) {
+  const Launch l = launch_for(w, h, lpad);
+  cudaError_t e = cudaFuncSetAttribute(
+      l.f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.shm);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, l.f);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.f, l.threads,
+                                                    l.shm);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)l.shm;
+  out[3] = l.threads;
+  out[4] = blocks;
+  out[5] = (int)a.localSizeBytes;
+  return 0;
 }
 
 }  // namespace
@@ -620,72 +771,74 @@ extern "C" int vt_plan_trial(
     int k, int shift1, int shift2, int ishift2, int qbits, int qscale,
     int qadd, int dshift, int dscale, int maxval, float c0, float c1,
     float c2, void* stream) {
-  cudaGetLastError();  // clear a stale error so the return is this launch's
-  if (k < 1 || k > M || M > kModes || B < 1) return (int)cudaErrorInvalidValue;
   const TrialParams p{w, h, k, M, shift1, shift2, ishift2, qbits, qscale,
                       qadd, dshift, dscale, maxval, c0, c1, c2};
-  const Inputs in{(const int*)src, (const int16_t*)preds, (const int*)satd,
-                  (const float*)lmbda, (const float*)lmbda_sad,
-                  (const float*)mode_bits, (const int*)tw, (const int*)th,
-                  (int*)modes, (float*)costs, B};
-  cudaStream_t st = (cudaStream_t)stream;
-  const Route r = route_for(w, h);
-  if (r == kWarp) {
-    const WarpGeom q = warp_geom(w, h);
-    const size_t shm = warp_smem(q);
-    cudaError_t e = cudaFuncSetAttribute(
-        plan_trial_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shm);
-    if (e != cudaSuccess) return (int)e;
-    plan_trial_warp_kernel<<<(B + q.warps - 1) / q.warps, kWarpThreads, shm,
-                             st>>>(in, p, q);
-    return (int)cudaGetLastError();
-  }
-  const size_t shm = tc_bytes(r);
-  cudaError_t e = cudaFuncSetAttribute(
-      tc_kernel(r), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-  if (e != cudaSuccess) return (int)e;
-  if (r == kTc16)
-    plan_trial_tc_kernel<16><<<B, TcGeom<16>::THREADS, shm, st>>>(in, p);
-  else if (r == kTc32)
-    plan_trial_tc_kernel<32><<<B, TcGeom<32>::THREADS, shm, st>>>(in, p);
-  else
-    plan_trial_tc_kernel<64><<<B, TcGeom<64>::THREADS, shm, st>>>(in, p);
-  return (int)cudaGetLastError();
+  Inputs in = {};
+  in.src = (const int*)src;
+  in.preds = (const int16_t*)preds;
+  in.satd = (const int*)satd;
+  in.lmbda = (const float*)lmbda;
+  in.lmbda_sad = (const float*)lmbda_sad;
+  in.mode_bits = (const float*)mode_bits;
+  in.tw = (const int*)tw;
+  in.th = (const int*)th;
+  in.modes = (int*)modes;
+  in.costs = (float*)costs;
+  in.B = B;
+  return launch(in, p, 0, stream);
+}
+
+// The same with the candidates' references in place of the predictions:
+// tops [B, Lt] / lefts [B, Ll] int32 (Lt, Ll >= LPAD); the survivors are
+// predicted at bit depth bit_depth from K1's tables of the class
+// (ops/tables.device_tables(w, h): rm_flat, row_start, filt, mode_info,
+// pdpc_wl, side_flat, LPAD, LR, TM, B0).  Returns cudaGetLastError()
+// after the launch.
+extern "C" int vt_plan_trial_refs(
+    const void* src, const void* tops, int Lt, const void* lefts, int Ll,
+    const void* satd, const void* lmbda, const void* lmbda_sad,
+    const void* mode_bits, const void* tw, const void* th, void* modes,
+    void* costs, int B, int M, int w, int h, int k, int shift1, int shift2,
+    int ishift2, int qbits, int qscale, int qadd, int dshift, int dscale,
+    int maxval, float c0, float c1, float c2, int bit_depth,
+    const void* rm_flat, const void* row_start, const void* filt,
+    const void* mode_info, const void* pdpc_wl, const void* side_flat,
+    int LPAD, int LR, int TM, int B0, void* stream) {
+  if (LPAD < 1 || Lt < LPAD || Ll < LPAD) return (int)cudaErrorInvalidValue;
+  const TrialParams p{w, h, k, M, shift1, shift2, ishift2, qbits, qscale,
+                      qadd, dshift, dscale, maxval, c0, c1, c2};
+  Inputs in = {};
+  in.src = (const int*)src;
+  in.tops = (const int*)tops;
+  in.lefts = (const int*)lefts;
+  in.Lt = Lt;
+  in.Ll = Ll;
+  in.bit_depth = bit_depth;
+  in.pt = intra_pred::Tables{(const int*)rm_flat, (const int*)row_start,
+                             (const int*)filt, (const int*)mode_info,
+                             (const int*)pdpc_wl, (const int*)side_flat,
+                             LPAD, LR, TM, B0};
+  in.satd = (const int*)satd;
+  in.lmbda = (const float*)lmbda;
+  in.lmbda_sad = (const float*)lmbda_sad;
+  in.mode_bits = (const float*)mode_bits;
+  in.tw = (const int*)tw;
+  in.th = (const int*)th;
+  in.modes = (int*)modes;
+  in.costs = (float*)costs;
+  in.B = B;
+  return launch(in, p, LPAD, stream);
 }
 
 // the resources of the kernel a (w, h) class launches: out = registers
 // per thread, static and dynamic shared memory bytes, threads per block,
 // resident blocks per SM, local memory bytes per thread.
 extern "C" int vt_plan_trial_attrs(int w, int h, int* out) {
-  const Route r = route_for(w, h);
-  const void* f;
-  size_t shm;
-  int threads;
-  if (r == kWarp) {
-    const WarpGeom q = warp_geom(w, h);
-    f = (const void*)plan_trial_warp_kernel;
-    shm = warp_smem(q);
-    threads = kWarpThreads;
-  } else {
-    f = tc_kernel(r);
-    shm = tc_bytes(r);
-    threads = tc_threads(r);
-  }
-  cudaError_t e = cudaFuncSetAttribute(
-      f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, f);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, threads, shm);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = (int)shm;
-  out[3] = threads;
-  out[4] = blocks;
-  out[5] = (int)a.localSizeBytes;
-  return 0;
+  return attrs(w, h, 0, out);
+}
+
+// the same for vt_plan_trial_refs (the class's pool: LPAD =
+// max(2w, 2h) + 3)
+extern "C" int vt_plan_trial_refs_attrs(int w, int h, int* out) {
+  return attrs(w, h, 2 * (w > h ? w : h) + 3, out);
 }

@@ -53,7 +53,12 @@
 //   of one (candidate, mode) before a shared-memory add;
 // - planar and DC (modes 0 and 1) are computed in integers from the pool
 //   once per group, into shared memory, and their tasks only subtract;
-//   tasks whose tile reaches no PDPC column run code without PDPC.
+//   tasks whose tile reaches no PDPC column run code without PDPC;
+// - a class of fewer groups than half the card's resident blocks (device
+//   planning's classes of one picture) splits each group's mode steps
+//   over as many of them as one wave holds: a work item is (group, range
+//   of steps), each item stages its group and writes only its modes'
+//   costs, so the per-(candidate, mode) arithmetic is the same.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -135,6 +140,7 @@ struct Shape {
   int w, h, bit_depth;
   int nA, nL, P;
   int G, MS, LM, TM, ntiles, ngroups;
+  int nsteps, msplit;                        // mode steps, items per group
   int lg_G, lg_pm, lg_ntx;                   // log2 of G, a mode's tasks, w / T
   long long B;
   int raw_top, raw_left, raw_row, raw_per;   // raw staging, per candidate
@@ -480,16 +486,21 @@ __global__ void __launch_bounds__(kThreads, T == 8 ? 3 : 4)
   const float* rmv = reinterpret_cast<const float*>(smem + s.o_rmv);
   int* cost = smem + s.o_cost;
 
-  int grp = blockIdx.x;
-  if (grp >= s.ngroups) return;
-  stage_raw<GATHERED>(in, s, smem + s.o_raw0, grp);
+  // work items (group, part): part p of a group runs its mode steps
+  // [p * nsteps / msplit, (p + 1) * nsteps / msplit)
+  const long long items = (long long)s.ngroups * s.msplit;
+  long long item = blockIdx.x;
+  if (item >= items) return;
+  stage_raw<GATHERED>(in, s, smem + s.o_raw0, (int)(item / s.msplit));
   cp_async_commit();
-  for (int it = 0; grp < s.ngroups; grp += gridDim.x, ++it) {
+  for (int it = 0; item < items; item += gridDim.x, ++it) {
+    const int grp = (int)(item / s.msplit);
+    const int part = (int)(item - (long long)grp * s.msplit);
     const int* raw = smem + ((it & 1) ? s.o_raw1 : s.o_raw0);
-    const int next = grp + gridDim.x;
-    if (next < s.ngroups) {
+    const long long next = item + gridDim.x;
+    if (next < items) {
       stage_raw<GATHERED>(in, s, smem + ((it & 1) ? s.o_raw0 : s.o_raw1),
-                          next);
+                          (int)(next / s.msplit));
       cp_async_commit();
       cp_async_wait_all_but_one();
     } else {
@@ -499,8 +510,9 @@ __global__ void __launch_bounds__(kThreads, T == 8 ? 3 : 4)
     const long long c0 = (long long)grp * s.G;
     const int G_live = (int)min((long long)s.G, s.B - c0);
     build_group<T, GATHERED>(in, s, smem, raw, grp, G_live);
-    const int nsteps = (kModes + s.MS - 1) / s.MS;
-    for (int step = 0; step < nsteps; ++step) {
+    const int st0 = part * s.nsteps / s.msplit;
+    const int st1 = (part + 1) * s.nsteps / s.msplit;
+    for (int step = st0; step < st1; ++step) {
       __syncthreads();
       stage_step(s, smem, step, G_live, gidx, rs_g, taps_g, wl_g, soff_g,
                  minfo_g);
@@ -590,8 +602,12 @@ __global__ void __launch_bounds__(kThreads, T == 8 ? 3 : 4)
       }
     }
     __syncthreads();
-    for (int k = threadIdx.x; k < G_live * kModes; k += kThreads)
-      out[c0 * kModes + k] = cost[k];
+    // this part's modes
+    const int m0 = st0 * s.MS, nm = min(kModes, st1 * s.MS) - m0;
+    for (int k = threadIdx.x; k < G_live * nm; k += kThreads) {
+      const int g = k / nm, m = m0 + (k - g * nm);
+      out[(c0 + g) * kModes + m] = cost[g * kModes + m];
+    }
   }
 }
 
@@ -664,6 +680,8 @@ Shape make_shape(int w, int h, int bit_depth, int nA, int nL, long long B,
     if (s.total * 4 <= kSmemAim || s.MS * per_mode <= kThreads) break;
     s.MS >>= 1;
   }
+  s.nsteps = (kModes + s.MS - 1) / s.MS;
+  s.msplit = 1;
   return s;
 }
 
@@ -704,7 +722,7 @@ int launch(const Inputs& in, long long B, void* out, int w, int h,
   if (w < 4 || h < 4 || w > 64 || h > 64 || (w & (w - 1)) || (h & (h - 1)) ||
       B <= 0 || t.LM <= 0)
     return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(w, h, bit_depth, nA, nL, B, t.LM, GATHERED);
+  Shape s = make_shape(w, h, bit_depth, nA, nL, B, t.LM, GATHERED);
   int blocks = 0, dev = 0, sms = 0;
   cudaError_t e = occupancy(s, GATHERED, &blocks);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
@@ -713,7 +731,12 @@ int launch(const Inputs& in, long long B, void* out, int w, int h,
   if (e != cudaSuccess) return (int)e;
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
   const long long slots = (long long)blocks * sms;
-  const int grid = (int)(s.ngroups < slots ? s.ngroups : slots);
+  // a class that leaves most resident blocks idle: each group's mode
+  // steps split over up to nsteps work items, no more than one wave
+  const long long fill = slots / s.ngroups;
+  if (fill >= 2) s.msplit = (int)(fill < s.nsteps ? fill : s.nsteps);
+  const long long items = (long long)s.ngroups * s.msplit;
+  const int grid = (int)(items < slots ? items : slots);
   const size_t shm = (size_t)s.total * 4;
   cudaStream_t st = (cudaStream_t)stream;
   const int T = (w % 8 == 0 && h % 8 == 0) ? 8 : 4;

@@ -5,12 +5,15 @@ recursion (reference anchor: EncCu.cpp:717 xCompressCU +
 IntraSearch.cpp estIntraPredLumaQT): for every partition size class, the
 card evaluates ALL candidate CUs of a batch of frames —
 
-  K1 predict (67 modes, ops/intra_presel.predict_all_modes)
-  K2 SATD (ops/intra_presel.satd_batch)
-  K3 top-K mode selection + full trial of the K survivors (forward
-     transform with the implicit-MTS type, scalar quantization, dequant,
-     inverse, clipped reconstruction, SSE) + rate proxy -> RD cost per
-     (block, mode)  (plan_trial, csrc/plan_trial.cu)
+  the 67-mode SATD: prediction and Hadamard SATD of every mode, fused
+     (ops/intra_presel.presel_costs, K4's gathered entry,
+     csrc/presel_costs.cu; the reference's predict_all_modes then
+     satd_batch, with no [B, 67, h, w] prediction buffer)
+  K3 top-K mode selection, the K survivors' predictions from the
+     references, then a full trial of each (forward transform with the
+     implicit-MTS type, scalar quantization, dequant, inverse, clipped
+     reconstruction, SSE) + rate proxy -> RD cost per (block, mode)
+     (plan_trial_refs, csrc/plan_trial.cu)
 
 The host then runs the (tiny) quadtree dynamic program over the per-class
 leaf costs to pick the split tree, and hands the native CTU driver a
@@ -39,8 +42,9 @@ import torch
 
 from . import intra as I
 from . import kernels
-from .intra_presel import (NUM_MODES, _class_grid, predict_all_modes,
-                           satd_batch)
+from .intra_presel import (NUM_MODES, _class_chunk, _class_grid,
+                           predict_all_modes, predict_all_modes_ref,
+                           presel_costs, satd_batch)
 from .tables import device_tables
 from .transforms import (DCT2, DST7, _dequant_params, _fwd_tr_ref,
                          _inv_tr_ref, _quant_params, dequant_batch_ref,
@@ -173,20 +177,117 @@ def plan_trial(src_blocks, preds, satd, lmbda, lmbda_sad, w: int, h: int,
     return modes, costs
 
 
+def plan_trial_refs_ref(src_blocks, tops, lefts, satd, lmbda, lmbda_sad,
+                        w: int, h: int, qp: int, bit_depth: int = 10,
+                        implicit_mts: bool = True, k: int = 2):
+    """Plain PyTorch version of plan_trial_refs: plan_trial_ref on the
+    67 predictions of the references (predict_all_modes_ref), in steps of
+    _class_chunk candidates (the rows are independent)."""
+    B = src_blocks.shape[0]
+    dev = src_blocks.device
+    modes = torch.empty((B, k), dtype=torch.int32, device=dev)
+    costs = torch.empty((B, k), dtype=torch.float32, device=dev)
+    step = _class_chunk(w, h)
+    for c0 in range(0, B, step):
+        c1 = min(c0 + step, B)
+        preds = predict_all_modes_ref(tops[c0:c1], lefts[c0:c1], w, h,
+                                      bit_depth)
+        modes[c0:c1], costs[c0:c1] = plan_trial_ref(
+            src_blocks[c0:c1], preds, satd[c0:c1], lmbda[c0:c1],
+            lmbda_sad[c0:c1], w, h, qp, bit_depth, implicit_mts, k)
+    return modes, costs
+
+
+_K3R_ARGS = ([_P, _P, _I, _P, _I] + [_P] * 8 + [_I] * 14 + [_F] * 3
+             + [_I] + [_P] * 6 + [_I] * 4 + [_P])
+
+
+def plan_trial_refs(src_blocks, tops, lefts, satd, lmbda, lmbda_sad, w: int,
+                    h: int, qp: int, bit_depth: int = 10,
+                    implicit_mts: bool = True, k: int = 2):
+    """plan_trial with the candidates' references in place of their 67
+    predictions: src [B, h, w], tops / lefts [B, >=LPAD] (LPAD =
+    max(2w, 2h) + 3), all int32, satd [B, 67] int32, lmbda / lmbda_sad
+    [B] float32 -> modes [B, k] int32, costs [B, k] float32.  K3's
+    reference entry (which predicts only the k survivors, with K1's
+    arithmetic) on a CUDA device, the plain version on the CPU."""
+    ins = (src_blocks, tops, lefts, satd, lmbda, lmbda_sad)
+    if {x.device.type for x in ins} == {"cpu"}:
+        return plan_trial_refs_ref(*ins, w, h, qp, bit_depth, implicit_mts,
+                                   k)
+    dev = src_blocks.device
+    if dev.type != "cuda":
+        raise ValueError(f"plan_trial_refs: no kernel for {dev}")
+    kernels.require(src_blocks, "src_blocks", torch.int32, 3, dev)
+    kernels.require(tops, "tops", torch.int32, 2, dev)
+    kernels.require(lefts, "lefts", torch.int32, 2, dev)
+    kernels.require(satd, "satd", torch.int32, 2, dev)
+    kernels.require(lmbda, "lmbda", torch.float32, 1, dev)
+    kernels.require(lmbda_sad, "lmbda_sad", torch.float32, 1, dev)
+    if not (w in (4, 8, 16, 32, 64) and h in (4, 8, 16, 32, 64)):
+        raise ValueError(f"plan_trial_refs: block {w}x{h}")
+    t = device_tables(w, h, dev)
+    B, M = satd.shape
+    if tuple(src_blocks.shape) != (B, h, w) or tops.shape[0] != B or \
+            lefts.shape[0] != B or lmbda.shape[0] != B or \
+            lmbda_sad.shape[0] != B or \
+            min(tops.shape[1], lefts.shape[1]) < t["LPAD"]:
+        raise ValueError(f"plan_trial_refs: shapes do not match (src "
+                         f"{tuple(src_blocks.shape)}, tops "
+                         f"{tuple(tops.shape)}, lefts {tuple(lefts.shape)}"
+                         f", satd {tuple(satd.shape)}; LPAD {t['LPAD']})")
+    if not 1 <= k <= M <= NUM_MODES:
+        raise ValueError(f"plan_trial_refs: k={k}, M={M}")
+    p = _trial_params(w, h, qp, bit_depth, implicit_mts)
+    tw = t["tr"][(w, p["trh"])]
+    th = t["tr"][(h, p["trv"])]
+    modes = torch.empty((B, k), dtype=torch.int32, device=dev)
+    costs = torch.empty((B, k), dtype=torch.float32, device=dev)
+    if B == 0:
+        return modes, costs
+    fn = kernels.function("plan_trial", "vt_plan_trial_refs", _K3R_ARGS)
+    err = fn(src_blocks.data_ptr(), tops.data_ptr(), tops.shape[1],
+             lefts.data_ptr(), lefts.shape[1], satd.data_ptr(),
+             lmbda.data_ptr(), lmbda_sad.data_ptr(),
+             t["mode_bits"].data_ptr(), tw.data_ptr(), th.data_ptr(),
+             modes.data_ptr(), costs.data_ptr(),
+             B, M, w, h, k, p["shift1"], p["shift2"], p["ishift2"],
+             p["qbits"], p["qscale"], p["qadd"], p["dshift"], p["dscale"],
+             p["maxval"], RATE_C0, RATE_C1, RATE_C2, bit_depth,
+             t["rm_flat"].data_ptr(), t["row_start"].data_ptr(),
+             t["filt"].data_ptr(), t["mode_info"].data_ptr(),
+             t["pdpc_wl"].data_ptr(), t["side_flat"].data_ptr(),
+             t["LPAD"], t["LR"], t["TM"], t["B0"],
+             kernels.stream_ptr(costs))
+    kernels.check("plan_trial", err)
+    kernels.count("plan_trial_refs")
+    return modes, costs
+
+
 def _plan_class_core(src_blocks, tops, lefts, lmbda, lmbda_sad, w: int,
                      h: int, qp: int, bit_depth: int = 10,
                      implicit_mts: bool = True, k: int = 2):
-    """One size class: modes [B, k] int32 + RD costs [B, k] float32
-    (K1 -> K2 -> K3 on a CUDA device, their plain versions on the CPU).
+    """One size class: modes [B, k] int32 + RD costs [B, k] float32.
+
+    On a CUDA device two launches, neither of which writes the 67
+    predictions: the fused 67-mode SATD (presel_costs, K4's gathered
+    entry; equal to satd_batch(predict_all_modes(...)) on square classes
+    with references LPAD wide) and K3's reference entry
+    (plan_trial_refs).  On the CPU the plain route: predict_all_modes ->
+    satd_batch -> plan_trial (their plain versions).
 
     lmbda / lmbda_sad: per-block float32 [B] (frames with different
     lambdas batch together).  The returned cost includes the approximate
     mode-signalling bits, so min over k is directly the leaf cost for
     the tree DP."""
-    preds = predict_all_modes(tops, lefts, w, h, bit_depth)
-    satd = satd_batch(src_blocks, preds, w, h)               # [B, 67]
-    return plan_trial(src_blocks, preds, satd, lmbda, lmbda_sad, w, h, qp,
-                      bit_depth, implicit_mts, k)
+    if {x.device.type for x in (src_blocks, tops, lefts)} == {"cpu"}:
+        preds = predict_all_modes(tops, lefts, w, h, bit_depth)
+        satd = satd_batch(src_blocks, preds, w, h)           # [B, 67]
+        return plan_trial(src_blocks, preds, satd, lmbda, lmbda_sad, w, h,
+                          qp, bit_depth, implicit_mts, k)
+    satd = presel_costs(src_blocks, tops, lefts, w, h, bit_depth)
+    return plan_trial_refs(src_blocks, tops, lefts, satd, lmbda, lmbda_sad,
+                           w, h, qp, bit_depth, implicit_mts, k)
 
 
 PAD = 80  # edge padding of the plane fed to _plan_batch_core

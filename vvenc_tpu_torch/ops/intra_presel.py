@@ -13,7 +13,9 @@ exact), predict every intra mode and cost it against the source block.
                         the frame-level preselection (FramePresel), read
                         straight from the padded source plane
   presel_costs       -> K4's second entry: the same on the reference's
-                        gathered inputs (the mesh path, graft_entry)
+                        gathered inputs (device planning's 67-mode SATD,
+                        ops/intra_plan._plan_class_core; the mesh path;
+                        graft_entry)
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version (`*_ref`, a transcription of the JAX reference) for CPU

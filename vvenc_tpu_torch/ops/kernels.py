@@ -3,8 +3,10 @@
 Each kernel is one `csrc/<name>.cu` with a plain C interface, compiled by
 nvcc for Hopper (sm_90a) into a shared library under
 vvenc_tpu_torch/_build/kernels/ at first use and loaded with ctypes.  The
-library name carries a hash of the source and the flags, so an edited
-source rebuilds.  build() starts one nvcc per missing source, all at once.
+library name carries a hash of the source, of every shared device header
+(csrc/*.cuh, which a source may include) and of the flags, so an edited
+source or header rebuilds.  build() starts one nvcc per missing source,
+all at once.
 
 -fmad=false: the f32 cost arithmetic of plan_trial must round each
 product and sum on its own, as the reference's XLA program does; a
@@ -36,7 +38,8 @@ BUILD_DIR = _PKG / "_build" / "kernels"
 ENTRIES = {
     "intra_pred_all": "intra_pred_all",
     "satd_modes": "satd_modes",
-    "plan_trial": "plan_trial",
+    "plan_trial": "plan_trial",                # K1's predictions
+    "plan_trial_refs": "plan_trial",           # the references (planning)
     "presel_costs": "presel_costs",            # plane form (FramePresel)
     "presel_costs_gathered": "presel_costs",   # the reference's inputs
     "frame_me": "frame_me",
@@ -86,8 +89,11 @@ def _nvcc() -> str:
 
 
 def so_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    tag = hashlib.sha256(h.digest() + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()
     return BUILD_DIR / f"{name}-{tag[:16]}.so"
 
 

@@ -412,7 +412,8 @@ def sharded_presel_costs(mesh: Mesh, blocks, tops, lefts, *, w, h,
 def sharded_plan_class(mesh: Mesh, blocks, tops, lefts, lmb, lms, *, w, h,
                        qp, bit_depth=10, implicit_mts=True, k=2):
     """The device RD planning of one size class (ops/intra_plan
-    _plan_class_core: K1 -> K2 -> K3) over every position of the mesh:
+    _plan_class_core: the fused SATD, then K3's reference entry) over
+    every position of the mesh:
     the candidate batch, padded to a multiple of the positions (blocks
     and references with zeros, the lambdas with ones), splits evenly.
     Returns (modes [B, k] int32, costs [B, k] float32) on the home
