@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vvenc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--json PATH]   # from the repository root, one card
+    python3 chip_smoke.py [--json PATH] [--old-csrc DIR]   # repo root, one card
 
 Phases; any mismatch or error ends the run with a non-zero exit code:
 
@@ -38,8 +38,11 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
    - K4's gathered entry (presel_costs, the reference's inputs) on the
      same picture and classes: bit-exact against the plain version and
      equal to the plane form; timed per class.
-   - K5 (frame_me) on two 1920x1080 pictures at R = 64: MVs equal,
-     costs within rtol 1e-6.
+   - K1 and K2 bit-exact and timed at search_step's shape (the 4 16x16
+     blocks of one position of dryrun_multichip(4)).
+   - K5 (frame_me) on two 1920x1080 and two 832x480 pictures at R = 64,
+     8 and 10 bits: MVs and costs equal; timed at 10 bits.
+   - The resources of K5's kernel and of K11's per block size.
    - K6 (fwd/inv_transform_batch) and K7 (quant/dequant_batch) bit-exact
      on the residuals of 1920x1080 pictures (source minus search_step's
      chosen prediction) for every square class 4..64 plus 8x4 and 16x8,
@@ -95,6 +98,11 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      gathered entry in the medium one.  Then
      graft_entry.dryrun_multichip(4), where search_step launches K1, K2,
      K6 and K7.
+   With --old-csrc DIR (an older checkout's vvenc_tpu_torch/csrc, for
+   example the parent commit's, unpacked), phase 3 also builds that K5
+   and K11 and sets them against the current ones: outputs equal at
+   every K5 and K11 shape above, times taken in turns (old, new, new,
+   old), the old kernels' resources.
 5. Prints a {"kernels": [...]} line, then the card line, then the last
    line {"ok": true, "device": {...}}.
 
@@ -120,7 +128,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 INT8_TC_OPS_PER_S = 1979e12     # dense int8 tensor-core peak
 COST_RTOL = 1e-5
-ME_COST_RTOL = 1e-6
+# search_step's batch on one position of graft_entry.dryrun_multichip(4)'s
+# 2x2 mesh: 2 * 2 gops x 2 tiles x 2 blocks of 16x16 over 4 positions
+SEARCH_STEP_BLOCKS = 4
+# K11's sizes in phase 3: (tag, picture, block side)
+MODE_SIZES = (("1080p 16x16", 16), ("1080p 32x32", 32), ("416x240 4x4", 4),
+              ("416x240 8x8", 8), ("416x240 64x64", 64))
 
 # kernel entry -> (source, the TPU program it replaces)
 KERNELS = {
@@ -694,9 +707,9 @@ def run_presel(torch, dev, pic, bd, reps, plain_reps):
     return recs, pic_rec
 
 
-def run_me(torch, dev, srcs, R, reps, plain_reps):
-    """K5 on one 1080p picture pair against its plain version: MVs equal,
-    costs within ME_COST_RTOL; returns the record."""
+def me_planes(torch, dev, srcs):
+    """The edge-padded int16 planes of a picture pair on the card (K5's
+    inputs) and the block-aligned size (Wc, Hc)."""
     from vvenc_tpu_torch.ops import me as M
     H, W = srcs[0].shape
     Hc = (H // M.ME_BS) * M.ME_BS
@@ -704,22 +717,62 @@ def run_me(torch, dev, srcs, R, reps, plain_reps):
     sp, rp = (torch.from_numpy(np.ascontiguousarray(
         np.pad(a, M.ME_PAD, mode="edge").astype(np.int16)
         [:Hc + 2 * M.ME_PAD, :Wc + 2 * M.ME_PAD])).to(dev) for a in srcs)
+    return sp, rp, Wc, Hc
+
+
+def run_me(torch, dev, srcs, R, reps, plain_reps):
+    """K5 on one picture pair against its plain version: MVs and costs
+    (the float32 of the exact integer SSE) equal; timed when reps > 0.
+    Returns the record."""
+    from vvenc_tpu_torch.ops import me as M
+    sp, rp, Wc, Hc = me_planes(torch, dev, srcs)
     mk, ck = M.frame_me(sp, rp, Wc, Hc, R)
     mr, cr = M.frame_me_ref(sp, rp, Wc, Hc, R)
     torch.cuda.synchronize()
     if not torch.equal(mk, mr):
         n = int((mk != mr).any(dim=1).sum())
-        fail(f"K5 frame_me MVs != plain in {n} of {mk.shape[0]} blocks")
-    rel = ((ck - cr).abs() / cr.abs().clamp_min(1.0)).max().item()
-    if not rel <= ME_COST_RTOL:
-        fail(f"K5 frame_me costs: rel err {rel} > {ME_COST_RTOL}")
-    return {"W": Wc, "H": Hc, "R": R, "blocks": mk.shape[0],
-            "max_rel_err": rel, "max_abs_err": (ck - cr).abs().max().item(),
-            "work": me_work(Wc, Hc, R),
-            "ms": cuda_ms(torch, lambda: M.frame_me(sp, rp, Wc, Hc, R),
-                          reps),
-            "plain_ms": cuda_ms(torch, lambda: M.frame_me_ref(
-                sp, rp, Wc, Hc, R), plain_reps)}
+        fail(f"K5 frame_me MVs != plain in {n} of {mk.shape[0]} blocks "
+             f"({Wc}x{Hc})")
+    if not torch.equal(ck, cr):
+        fail(f"K5 frame_me costs != plain in {int((ck != cr).sum())} of "
+             f"{ck.shape[0]} blocks ({Wc}x{Hc})")
+    rec = {"W": Wc, "H": Hc, "R": R, "blocks": mk.shape[0],
+           "max_abs_err": (ck - cr).abs().max().item(),
+           "work": me_work(Wc, Hc, R)}
+    if reps:
+        rec["ms"] = cuda_ms(torch, lambda: M.frame_me(sp, rp, Wc, Hc, R),
+                            reps)
+        rec["plain_ms"] = cuda_ms(torch, lambda: M.frame_me_ref(
+            sp, rp, Wc, Hc, R), plain_reps)
+    return rec
+
+
+def run_search_step_shape(torch, dev, reps, plain_reps):
+    """K1 and K2 at the shape search_step launches them with in
+    graft_entry.dryrun_multichip(4): the 4 16x16 blocks of one mesh
+    position (graft_entry's example inputs), bit-exact against their plain
+    versions and timed with them.  Returns {entry: record}."""
+    from vvenc_tpu_torch import graft_entry
+    from vvenc_tpu_torch.ops import intra_presel as S
+    B, s = SEARCH_STEP_BLOCKS, 16
+    src, tops, lefts = (torch.from_numpy(a).to(dev) for a in
+                        graft_entry._example_inputs(B, s, s, seed=4))
+    preds = S.predict_all_modes(tops, lefts, s, s, 10)
+    if not torch.equal(preds, S.predict_all_modes_ref(tops, lefts, s, s,
+                                                      10)):
+        fail("K1 intra_pred_all != plain at search_step's shape")
+    if not torch.equal(S.satd_batch(src, preds, s, s),
+                       S.satd_batch_ref(src, preds, s, s)):
+        fail("K2 satd_modes != plain at search_step's shape")
+    calls = {"intra_pred_all": (
+        lambda: S.predict_all_modes(tops, lefts, s, s, 10),
+        lambda: S.predict_all_modes_ref(tops, lefts, s, s, 10)),
+        "satd_modes": (lambda: S.satd_batch(src, preds, s, s),
+                       lambda: S.satd_batch_ref(src, preds, s, s))}
+    return {n: {"B": B, "s": s, "work": work(n, B, s, 0),
+                "ms": cuda_ms(torch, kern, reps),
+                "plain_ms": cuda_ms(torch, plain, plain_reps)}
+            for n, (kern, plain) in calls.items()}
 
 
 def padded_plane(torch, dev, pic):
@@ -846,14 +899,27 @@ def mode_inputs(torch, dev, pic, s):
     return (src, torch.from_numpy(rm).to(dev), tops, lefts), secs
 
 
-def run_batch_ops(torch, dev, kernels, pics, small, reps, plain_reps):
+def mode_grid_inputs(torch, dev, pic, small):
+    """K11's inputs for MODE_SIZES: the s x s grids of the 1080p picture
+    `pic` and of the 416x240 picture `small`.  Returns ({tag: (src, rm,
+    tops, lefts)}, {tag: host seconds of build_ref_mains})."""
+    mi, secs = {}, {}
+    for tag, s in MODE_SIZES:
+        mi[tag], secs[tag] = mode_inputs(
+            torch, dev, pic if tag.startswith("1080p") else small, s)
+    return mi, secs
+
+
+def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
+                  plain_reps):
     """K8-K11 through their public functions at 1080p shapes.  First the
     path run of each (the launch counts set to 0 just before, read just
     after: the full-width calls at 10 bits), then every call again at 8
     and 10 bits against the plain versions (bit-exact; K9's SSEs and
     argmins equal), then the times at 10 bits.  pics: {bd: (picture,
-    second picture)} 1920x1080; small: {bd: 416x240 picture}.  Returns
-    the report record."""
+    second picture)} 1920x1080; small: {bd: 416x240 picture}; mi10,
+    ref_secs: mode_grid_inputs of the 10-bit pictures.  Returns the
+    report record."""
     from vvenc_tpu_torch.ops import interp as IP
     from vvenc_tpu_torch.ops import intra_batch as IB
     from vvenc_tpu_torch.ops import me as M
@@ -892,14 +958,6 @@ def run_batch_ops(torch, dev, kernels, pics, small, reps, plain_reps):
         return out
 
     x10 = inputs(10)
-    mi10 = {}
-    ref_secs = {}
-    for tag, pic, s in (("1080p 16x16", pics[10][0], 16),
-                        ("1080p 32x32", pics[10][0], 32),
-                        ("416x240 4x4", small[10], 4),
-                        ("416x240 8x8", small[10], 8),
-                        ("416x240 64x64", small[10], 64)):
-        mi10[tag], ref_secs[tag] = mode_inputs(torch, dev, pic, s)
     torch.cuda.synchronize()
     # the path runs: the full-width calls of each public function
     paths = {}
@@ -999,11 +1057,12 @@ def run_batch_ops(torch, dev, kernels, pics, small, reps, plain_reps):
         rec["ms"][n] = cuda_ms(torch, kern, reps)
         rec["plain_ms"][n] = cuda_ms(torch, plain, plain_reps)
         rec["work"][n] = w
-    B32 = mi10["1080p 32x32"][0].shape[0]
-    rec["per_call"]["mode_costs 32x32"] = {
-        "B": B32, "work": mode_work(B32, 32),
-        "ms": cuda_ms(torch, lambda: IB.mode_costs_batch(
-            *mi10["1080p 32x32"], 32, 32, 10), reps)}
+    for tag, s in MODE_SIZES:
+        B = mi10[tag][0].shape[0]
+        rec["per_call"][f"mode_costs {tag}"] = {
+            "B": B, "work": mode_work(B, s),
+            "ms": cuda_ms(torch, lambda: IB.mode_costs_batch(
+                *mi10[tag], s, s, 10), reps)}
     rec["per_call"]["satd_batch tile 4"] = {
         "ms": cuda_ms(torch, lambda: RD.satd_batch(x10["blocks"],
                                                    x10["b16"], 4), reps),
@@ -1417,6 +1476,133 @@ def encode(torch, tag, clip, w, h, frames, qp, preset, extra, plan=False):
     return enc, enc.encode_seconds
 
 
+# the redesigned kernels that --old-csrc sets against an older build,
+# with the C signatures of vt_frame_me and vt_mode_costs before K5 took
+# its pooled-plane scratch
+OLD_SOURCES = ("frame_me", "mode_costs")
+OLD_ARGS = {"vt_frame_me": "ppiiiippp",
+            "vt_mode_costs": "pppipipLiiipppp"}
+
+
+def build_old(csrc: str) -> dict:
+    """Compiles OLD_SOURCES of another checkout's csrc/ directory (for
+    example the parent commit's, unpacked) with the port's nvcc flags into
+    vvenc_tpu_torch/_build/old/, one nvcc each, started together.
+    Returns {name: (ctypes library, ptxas report)}."""
+    import ctypes
+    from vvenc_tpu_torch.ops import kernels
+    out_dir = kernels.BUILD_DIR.parent / "old"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {n: subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out_dir / f"{n}.so"),
+         str(pathlib.Path(csrc) / f"{n}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for n in OLD_SOURCES}
+    libs = {}
+    for n, proc in procs.items():
+        o, e = proc.communicate()
+        if proc.returncode:
+            fail(f"nvcc failed for the old {n}.cu:\n{e}")
+        lib = ctypes.CDLL(str(out_dir / f"{n}.so"))
+        lib.vt_error_string.argtypes = [ctypes.c_int]
+        lib.vt_error_string.restype = ctypes.c_char_p
+        libs[n] = (lib, o + e)
+    return libs
+
+
+def old_call(lib, symbol: str, *args) -> None:
+    """Launches the old kernel entry `symbol`; fails if it was refused."""
+    import ctypes
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "L": ctypes.c_longlong}
+    fn = getattr(lib, symbol)
+    fn.argtypes = [kinds[c] for c in OLD_ARGS[symbol]]
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err:
+        fail(f"old {symbol}: error {err} "
+             f"({lib.vt_error_string(err).decode()})")
+
+
+def old_resources(lib, symbol: str, *args) -> dict:
+    import ctypes
+    from vvenc_tpu_torch.ops import kernels
+    out = (ctypes.c_int * len(kernels.RESOURCE_KEYS))()
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*args, ctypes.addressof(out))
+    if err:
+        fail(f"old {symbol}: error {err}")
+    return dict(zip(kernels.RESOURCE_KEYS, out))
+
+
+def in_turns(torch, old, new, reps) -> tuple:
+    """(old ms, new ms): each timed twice, old, new, new, old (CUDA
+    events, cuda_ms), and averaged."""
+    o1, n1, n2, o2 = (cuda_ms(torch, f, reps) for f in (old, new, new, old))
+    return (o1 + o2) / 2, (n1 + n2) / 2
+
+
+def old_new_phase(torch, dev, libs, me_cases, mi10, reps) -> dict:
+    """K5 and K11 against the older build `libs` (build_old) in one call:
+    the old kernels' outputs equal to the new ones' (K5 MVs and costs,
+    K11 costs) at every shape, the times in turns, and the old kernels'
+    resources.  me_cases: {tag: (src plane, ref plane, W, H, R)}; mi10:
+    K11's inputs by MODE_SIZES tag.  Returns the record."""
+    from vvenc_tpu_torch.ops import intra_batch as IB
+    from vvenc_tpu_torch.ops import kernels
+    from vvenc_tpu_torch.ops import me as M
+    me_lib, mc_lib = libs["frame_me"][0], libs["mode_costs"][0]
+    rec = {"frame_me": {}, "mode_costs": {}, "resources": {}}
+    for tag, (sp, rp, W, H, R) in me_cases.items():
+        B = (W // M.ME_BS) * (H // M.ME_BS)
+        mv = torch.empty((B, 2), dtype=torch.int32, device=dev)
+        cost = torch.empty((B,), dtype=torch.float32, device=dev)
+
+        def old():
+            old_call(me_lib, "vt_frame_me", sp.data_ptr(), rp.data_ptr(),
+                     sp.shape[1], W // M.ME_BS, H // M.ME_BS, R,
+                     mv.data_ptr(), cost.data_ptr(),
+                     kernels.stream_ptr(mv))
+        old()
+        mk, ck = M.frame_me(sp, rp, W, H, R)
+        torch.cuda.synchronize()
+        if not (torch.equal(mv, mk) and torch.equal(cost, ck)):
+            fail(f"K5 frame_me ({tag}): the new kernel's MVs or costs != "
+                 "the old kernel's")
+        o, n = in_turns(torch, old, lambda: M.frame_me(sp, rp, W, H, R),
+                        reps)
+        rec["frame_me"][tag] = {"old_ms": o, "ms": n,
+                                "bound_ms": bound_ms(*me_work(W, H, R))[0]}
+    for tag, s in MODE_SIZES:
+        src, rm, tops, lefts = mi10[tag]
+        B = src.shape[0]
+        out = torch.zeros((B, 67), dtype=torch.int32, device=dev)
+        row_start, filt, transposed = IB._device_tables(s, dev)
+
+        def old():
+            out.zero_()
+            old_call(mc_lib, "vt_mode_costs", src.data_ptr(), rm.data_ptr(),
+                     tops.data_ptr(), tops.shape[1], lefts.data_ptr(),
+                     lefts.shape[1], out.data_ptr(), B, rm.shape[2], s, 10,
+                     row_start.data_ptr(), filt.data_ptr(),
+                     transposed.data_ptr(), kernels.stream_ptr(out))
+        old()
+        got = IB.mode_costs_batch(src, rm, tops, lefts, s, s, 10)
+        torch.cuda.synchronize()
+        if not torch.equal(out, got):
+            fail(f"K11 mode_costs ({tag}): the new kernel's costs != the "
+                 "old kernel's")
+        o, n = in_turns(torch, old, lambda: IB.mode_costs_batch(
+            src, rm, tops, lefts, s, s, 10), reps)
+        rec["mode_costs"][tag] = {"B": B, "old_ms": o, "ms": n,
+                                  "bound_ms": bound_ms(*mode_work(B, s))[0]}
+    rec["resources"]["frame_me"] = old_resources(me_lib, "vt_frame_me_attrs")
+    for s in (4, 8, 16, 32, 64):
+        rec["resources"][f"mode_costs {s}x{s}"] = old_resources(
+            mc_lib, "vt_mode_costs_attrs", s)
+    return rec
+
+
 def print_ptxas(built: dict) -> None:
     """ptxas's register and spill lines of each kernel source built."""
     for n, log in built.items():
@@ -1432,29 +1618,41 @@ def write_json(json_path, report: dict) -> None:
         path.write_text(json.dumps(report, indent=1))
 
 
-def print_resources() -> dict:
-    """Prints and returns the resources of K3's and K4's kernels per class
-    (registers, shared memory, threads and resident blocks per SM, from
-    each source's vt_*_attrs query on this card)."""
+def resource_rows() -> list:
+    """(label, source, vt_*_attrs symbol, int arguments) of every kernel
+    whose resources phase 3 prints: K3 (both entries) and K4 (both
+    entries) per class, K5, K11 per block size."""
     from vvenc_tpu_torch.ops import intra_presel as S
-    from vvenc_tpu_torch.ops import kernels
     from vvenc_tpu_torch.ops.tables import presel_mode_tables
-    out = {}
-    rows = [(name, f"vt_{name}_attrs", (s, s))
+    rows = [(f"{name} {s}x{s}", "plan_trial", f"vt_{name}_attrs", (s, s))
             for name in ("plan_trial", "plan_trial_refs")
             for s in (4, 8, 16, 32, 64)]
-    rows += [(f"presel_costs{'_gathered' if g else ''}",
-              "vt_presel_costs_attrs",
+    rows += [(f"presel_costs{'_gathered' if g else ''} {w}x{h}",
+              "presel_costs", "vt_presel_costs_attrs",
               (w, h, g, presel_mode_tables(w, h, 2 * w + 3, 2 * h + 3)["LM"]))
              for (w, h) in S.shapes_for_config(128, 2)[0] for g in (0, 1)]
-    for name, symbol, args in rows:
-        src = KERNELS[name][0].split("/")[-1][:-3]
-        r = kernels.resources(src, symbol, *args)
-        out[f"{name} {args[0]}x{args[1]}"] = r
-        print(f"  resources {name} {args[0]}x{args[1]}: {r['registers']} "
-              f"registers, shared {r['static_smem']} + {r['dynamic_smem']} "
-              f"B, {r['threads']} threads, {r['blocks_per_sm']} blocks/SM, "
-              f"local {r['local_bytes']} B", flush=True)
+    rows.append(("frame_me", "frame_me", "vt_frame_me_attrs", ()))
+    rows += [(f"mode_costs {s}x{s}", "mode_costs", "vt_mode_costs_attrs",
+              (s,)) for s in (4, 8, 16, 32, 64)]
+    return rows
+
+
+def resource_line(label: str, r: dict) -> str:
+    return (f"  resources {label}: {r['registers']} registers, shared "
+            f"{r['static_smem']} + {r['dynamic_smem']} B, {r['threads']} "
+            f"threads, {r['blocks_per_sm']} blocks/SM, local "
+            f"{r['local_bytes']} B")
+
+
+def print_resources() -> dict:
+    """Prints and returns the resources of K3's, K4's, K5's and K11's
+    kernels (registers, shared memory, threads, resident blocks per SM and
+    local memory, from each source's vt_*_attrs query on this card)."""
+    from vvenc_tpu_torch.ops import kernels
+    out = {}
+    for label, src, symbol, args in resource_rows():
+        r = out[label] = kernels.resources(src, symbol, *args)
+        print(resource_line(label, r), flush=True)
     return out
 
 
@@ -1584,6 +1782,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", dest="json_path", default=None,
                     help="also write the detailed numbers to this file")
+    ap.add_argument("--old-csrc", default=None,
+                    help="a csrc/ directory of an older checkout: also "
+                         "build its K5 and K11 sources and set them against "
+                         "the current ones (outputs equal, times in turns, "
+                         "resources)")
     args = ap.parse_args(argv)
     json_path = args.json_path
     import torch
@@ -1603,11 +1806,20 @@ def main(argv=None) -> int:
     from vvenc_tpu_torch.ops import kernels
     t0 = time.time()
     built = {}
+    old_libs = {}
     th = threading.Thread(target=lambda: built.update(kernels.build()))
     th.start()
+    if args.old_csrc:
+        th_old = threading.Thread(
+            target=lambda: old_libs.update(build_old(args.old_csrc)))
+        th_old.start()
     from vvenc_tpu_torch import capi_c, native
     capi_c.build()
     th.join()
+    if args.old_csrc:
+        th_old.join()
+        if set(old_libs) != set(OLD_SOURCES):
+            fail(f"the old kernels of {args.old_csrc} did not build")
     t_build = time.time() - t0
     if not native.available():
         fail("the native library (native/entropy.cpp) did not build:\n"
@@ -1618,19 +1830,36 @@ def main(argv=None) -> int:
     print(f"phase 2: built {len(kernels.SOURCES)} kernel sources, the "
           f"native library and the C shim in {t_build:.1f} s", flush=True)
     print_ptxas(built)
+    print_ptxas({f"{n} (old)": log for n, (_, log) in old_libs.items()})
 
     report = {"card": card, "kind": kind, "build_seconds": t_build}
     pic10, crecs, precs, (pms, pbound, pby), (gms, gbound, gby) = \
         k3_k4_phase(torch, dev, report)
     W, H = 1920, 1080
 
-    # phase 3, K5: two 1080p pictures at R = 64 (config 3's shape)
-    me = run_me(torch, dev, luma_frames(W, H, 2, 10, seed=41), 64, reps=20,
-                plain_reps=3)
-    print(f"phase 3: K5 frame_me {me['W']}x{me['H']} R=64: MVs equal, costs "
-          f"max rel err {me['max_rel_err']:.3g}; {me['ms']:.3f} ms (plain "
-          f"{me['plain_ms']:.3f}, bound {bound_ms(*me['work'])[0]:.3f})",
+    # phase 3, K1 and K2 at the shape search_step launches them with
+    ss = run_search_step_shape(torch, dev, reps=200, plain_reps=20)
+    print(f"phase 3: K1 intra_pred_all and K2 satd_modes bit-exact at "
+          f"search_step's shape ({SEARCH_STEP_BLOCKS} blocks of 16x16, one "
+          f"position of dryrun_multichip(4)): " + ", ".join(
+              f"{n} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
+              f"{bound_ms(*r['work'])[0]:.5f})" for n, r in ss.items()),
           flush=True)
+    report["search_step_shape"] = ss
+
+    # phase 3, K5: two pictures at R = 64, 1080p (config 3's shape) and
+    # 832x480 (config 2's), 8 and 10 bits; timed at 10 bits
+    me, me_cases = {}, {}
+    for (w, h), seed in (((W, H), 41), ((832, 480), 45)):
+        pair = luma_frames(w, h, 2, 10, seed=seed)
+        me[f"{w}x{h}"] = r = run_me(torch, dev, pair, 64, reps=20,
+                                    plain_reps=3)
+        run_me(torch, dev, luma_frames(w, h, 2, 8, seed=seed + 1), 64,
+               reps=0, plain_reps=0)
+        me_cases[f"{w}x{h}"] = me_planes(torch, dev, pair) + (64,)
+        print(f"phase 3: K5 frame_me {w}x{h} R=64: MVs and costs equal at 8 "
+              f"and 10 bits; {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
+              f"bound {bound_ms(*r['work'])[0]:.4f})", flush=True)
     report["me"] = me
 
     # phase 3, K6 and K7: residuals of 1080p pictures at 8 and 10 bits
@@ -1652,12 +1881,12 @@ def main(argv=None) -> int:
 
     # phase 3, K8-K11: their public functions at 1080p shapes
     pair8 = luma_frames(W, H, 2, 8, seed=81)
+    small = {bd: luma_frames(416, 240, 1, bd, seed=91)[0] for bd in (8, 10)}
+    mi10, ref_secs = mode_grid_inputs(torch, dev, pic10, small[10])
     batch = run_batch_ops(
         torch, dev, kernels,
         {10: (pic10, luma_frames(W, H, 2, 10, seed=31)[1]),
-         8: tuple(pair8)},
-        {bd: luma_frames(416, 240, 1, bd, seed=91)[0] for bd in (8, 10)},
-        reps=20, plain_reps=2)
+         8: tuple(pair8)}, small, mi10, ref_secs, reps=20, plain_reps=2)
     print(f"phase 3: K8 mc_batch ({len(LUMA_PHASES)} luma phases on "
           f"{batch['B']} 16x16 blocks, {len(CHROMA_PHASES)} chroma phases "
           "on 8x8 blocks of 960x540), K9 full_search_sse (16x16, R=16: "
@@ -1674,7 +1903,23 @@ def main(argv=None) -> int:
               f"{batch['plain_ms'][n]:.3f}, bound "
               f"{bound_ms(*batch['work'][n])[0]:.4f} "
               f"{bound_ms(*batch['work'][n])[1]})")
+    for tag, _ in MODE_SIZES:
+        r = batch["per_call"][f"mode_costs {tag}"]
+        print(f"  mode_costs {tag} B={r['B']}: {r['ms']:.4f} ms (bound "
+              f"{bound_ms(*r['work'])[0]:.4f})")
     report["batch_ops"] = batch
+    if old_libs:
+        cmp = old_new_phase(torch, dev, old_libs, me_cases, mi10, reps=20)
+        print(f"phase 3: K5 and K11 against the kernels of {args.old_csrc}: "
+              "outputs equal; old ms -> new ms (bound), each timed old, new, "
+              "new, old", flush=True)
+        for n in OLD_SOURCES:
+            for tag, r in cmp[n].items():
+                print(f"  {n} {tag}: {r['old_ms']:.4f} -> {r['ms']:.4f} ms "
+                      f"({r['bound_ms']:.4f})")
+        for label, r in cmp["resources"].items():
+            print(resource_line(f"{label} (old)", r))
+        report["old_new"] = cmp
 
     # phase 4: the main paths through the CLI
     from vvenc_tpu_torch.utils.devclock import DEV
@@ -1725,7 +1970,9 @@ def main(argv=None) -> int:
     # medium all-intra encode, K5 VVEncImpl streaming config 2, K4's
     # gathered entry that encode with intra_presel.MESH set, K6 and K7
     # dryrun_multichip(4), K8-K11 the full-width calls of their public
-    # functions); K1-K3's times are config 1's plan batch
+    # functions); each time is at the shape its launches run: K1 and K2
+    # search_step's, both K3 entries config 1's plan batch, K5 832x480
+    # (phase 3 prints K1/K2 on the plan batch and K5 at 1080p beside)
     entries = []
     for n, (src, replaces) in KERNELS.items():
         if n in BATCH_KERNELS:
@@ -1734,18 +1981,21 @@ def main(argv=None) -> int:
             path = "dist_batch" if n in ("sse_batch", "sad_batch",
                                          "satd_batch") else n
             nl = batch["launches"][path][n]
-        elif n in OLD_PLAN_KERNELS or n == "plan_trial_refs":
+        elif n in ("intra_pred_all", "satd_modes"):
+            # search_step's shape, where dryrun_multichip(4) launches them
+            r = ss[n]
+            ms, plain_ms, err = r["ms"], r["plain_ms"], 0.0
+            bms, by = bound_ms(*r["work"])
+            nl = mesh_launches["dryrun"][n]
+        elif n in ("plan_trial", "plan_trial_refs"):
             ms = sum(r["ms"][n] for r in crecs)
             plain_ms = sum(r["plain_ms"][n] for r in crecs)
             # per class (K3's as the kernel computes it, plan_bound_ms)
             bms = sum(r["bound_ms"][n] for r in crecs)
             by = max(("bytes", "operations"), key=lambda b: sum(
                 r["bound_ms"][n] for r in crecs if r["bound_by"][n] == b))
-            err = max(r[f"{n}_max_abs_err"] for r in crecs) \
-                if n in ("plan_trial", "plan_trial_refs") else 0.0
-            nl = mesh_launches["dryrun"][n] if n in (
-                "intra_pred_all", "satd_modes") else \
-                api_launches["api_config1"][n]
+            err = max(r[f"{n}_max_abs_err"] for r in crecs)
+            nl = api_launches["api_config1"][n]
         elif n == "presel_costs":
             ms, plain_ms, bms, by, err = pms, sum(
                 r["plain_ms"] for r in precs), pbound, pby, 0.0
@@ -1760,8 +2010,10 @@ def main(argv=None) -> int:
             bms, by = bound_ms(*tr16["work"][n])
             nl = mesh_launches["dryrun"][n]
         else:
-            ms, plain_ms, err = me["ms"], me["plain_ms"], me["max_abs_err"]
-            bms, by = bound_ms(*me["work"])
+            # config 2's 832x480, where VVEncImpl streaming launches it
+            r = me["832x480"]
+            ms, plain_ms, err = r["ms"], r["plain_ms"], r["max_abs_err"]
+            bms, by = bound_ms(*r["work"])
             nl = api_launches["api_config2"][n]
         entries.append({"name": n, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": nl,

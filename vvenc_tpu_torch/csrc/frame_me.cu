@@ -180,3 +180,23 @@ extern "C" int vt_frame_me(const void* src, const void* ref, int stride,
       (float*)cost);
   return (int)cudaGetLastError();
 }
+
+// The kernel's resources on the current card: out[6] = registers, static
+// and dynamic shared bytes, threads, resident blocks per SM, local
+// (stack) bytes.  Returns a cudaError_t.
+extern "C" int vt_frame_me_attrs(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, frame_me_kernel);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, frame_me_kernel,
+                                                    kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = 0;
+  out[3] = kThreads;
+  out[4] = blocks;
+  out[5] = (int)a.localSizeBytes;
+  return 0;
+}

@@ -217,3 +217,25 @@ extern "C" int vt_mode_costs(const void* src, const void* rm, const void* tops,
     mode_costs_kernel<4><<<(unsigned)grid, kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
+
+// The resources of the kernel for w x w blocks on the current card:
+// out[6] = registers, static and dynamic shared bytes, threads, resident
+// blocks per SM, local (stack) bytes.  Returns a cudaError_t.
+extern "C" int vt_mode_costs_attrs(int w, int* out) {
+  if (w < 4 || w > 64 || (w & (w - 1))) return (int)cudaErrorInvalidValue;
+  const void* f = w % 8 == 0 ? (const void*)mode_costs_kernel<8>
+                             : (const void*)mode_costs_kernel<4>;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = 0;
+  out[3] = kThreads;
+  out[4] = blocks;
+  out[5] = (int)a.localSizeBytes;
+  return 0;
+}
