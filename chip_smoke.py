@@ -201,7 +201,7 @@ BATCH_FUNCTIONS = {"mc_batch": "mc_kernel<8>",
                    "sse_batch": "dist_kernel<true>",
                    "sad_batch": "dist_kernel<false>",
                    "satd_batch": "satd_small_kernel<8>",
-                   "mode_costs": "mode_costs_kernel<8>"}
+                   "mode_costs": "mode_costs_kernel<8, true>"}
 # K8's phases: the 16 quarter-pel luma phases, a few 1/32 chroma ones
 LUMA_PHASES = tuple((fx, fy) for fy in (0, 4, 8, 12) for fx in (0, 4, 8, 12))
 CHROMA_PHASES = ((0, 0), (16, 0), (0, 8), (5, 27), (31, 31))
@@ -1477,8 +1477,7 @@ def encode(torch, tag, clip, w, h, frames, qp, preset, extra, plan=False):
 
 
 # the redesigned kernels that --old-csrc sets against an older build,
-# with the C signatures of vt_frame_me and vt_mode_costs before K5 took
-# its pooled-plane scratch
+# and the C signatures of their entries (unchanged by the redesign)
 OLD_SOURCES = ("frame_me", "mode_costs")
 OLD_ARGS = {"vt_frame_me": "ppiiiippp",
             "vt_mode_costs": "pppipipLiiipppp"}
@@ -1535,6 +1534,20 @@ def old_resources(lib, symbol: str, *args) -> dict:
     return dict(zip(kernels.RESOURCE_KEYS, out))
 
 
+def call_device_ms(torch, fn, reps: int) -> float:
+    """Device milliseconds per fn() call: every CUDA kernel it launches,
+    summed (torch.profiler's CUDA activity, after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.self_device_time_total > 0) / reps / 1e3
+
+
 def in_turns(torch, old, new, reps) -> tuple:
     """(old ms, new ms): each timed twice, old, new, new, old (CUDA
     events, cuda_ms), and averaged."""
@@ -1545,57 +1558,81 @@ def in_turns(torch, old, new, reps) -> tuple:
 def old_new_phase(torch, dev, libs, me_cases, mi10, reps) -> dict:
     """K5 and K11 against the older build `libs` (build_old) in one call:
     the old kernels' outputs equal to the new ones' (K5 MVs and costs,
-    K11 costs) at every shape, the times in turns, and the old kernels'
-    resources.  me_cases: {tag: (src plane, ref plane, W, H, R)}; mi10:
-    K11's inputs by MODE_SIZES tag.  Returns the record."""
+    K11 costs) at every shape; both kernels called the same way (one
+    ctypes call into each library, the old K11 with the zeroed output it
+    needs) and timed in turns, CUDA events around back-to-back calls,
+    then the device time of each call alone (profiler) and the new
+    public function's time; the old kernels' resources.  me_cases: {tag:
+    (src plane, ref plane, W, H, R)}; mi10: K11's inputs by MODE_SIZES
+    tag.  Returns the record."""
     from vvenc_tpu_torch.ops import intra_batch as IB
     from vvenc_tpu_torch.ops import kernels
     from vvenc_tpu_torch.ops import me as M
     me_lib, mc_lib = libs["frame_me"][0], libs["mode_costs"][0]
+    k5 = kernels.function("frame_me", "vt_frame_me", M._K5_ARGS)
+    k11 = kernels.function("mode_costs", "vt_mode_costs", IB._K11_ARGS)
     rec = {"frame_me": {}, "mode_costs": {}, "resources": {}}
+
+    def timed(kind, tag, old, new, public, work):
+        o, n = in_turns(torch, old, new, reps)
+        rec[kind][tag] = {
+            "old_ms": o, "ms": n, "public_ms": cuda_ms(torch, public, reps),
+            "old_device_ms": call_device_ms(torch, old, reps),
+            "device_ms": call_device_ms(torch, new, reps),
+            "bound_ms": bound_ms(*work)[0]}
+
     for tag, (sp, rp, W, H, R) in me_cases.items():
         B = (W // M.ME_BS) * (H // M.ME_BS)
-        mv = torch.empty((B, 2), dtype=torch.int32, device=dev)
-        cost = torch.empty((B,), dtype=torch.float32, device=dev)
+        outs = {v: (torch.empty((B, 2), dtype=torch.int32, device=dev),
+                    torch.empty((B,), dtype=torch.float32, device=dev))
+                for v in ("old", "new")}
 
-        def old():
-            old_call(me_lib, "vt_frame_me", sp.data_ptr(), rp.data_ptr(),
-                     sp.shape[1], W // M.ME_BS, H // M.ME_BS, R,
-                     mv.data_ptr(), cost.data_ptr(),
-                     kernels.stream_ptr(mv))
-        old()
-        mk, ck = M.frame_me(sp, rp, W, H, R)
+        def call(v):
+            mv, cost = outs[v]
+            args = (sp.data_ptr(), rp.data_ptr(), sp.shape[1], W // M.ME_BS,
+                    H // M.ME_BS, R, mv.data_ptr(), cost.data_ptr(),
+                    kernels.stream_ptr(mv))
+            if v == "old":
+                old_call(me_lib, "vt_frame_me", *args)
+            else:
+                kernels.check("frame_me", k5(*args))
+        call("old")
+        call("new")
         torch.cuda.synchronize()
-        if not (torch.equal(mv, mk) and torch.equal(cost, ck)):
+        if not all(torch.equal(a, b) for a, b in zip(outs["old"],
+                                                       outs["new"])):
             fail(f"K5 frame_me ({tag}): the new kernel's MVs or costs != "
                  "the old kernel's")
-        o, n = in_turns(torch, old, lambda: M.frame_me(sp, rp, W, H, R),
-                        reps)
-        rec["frame_me"][tag] = {"old_ms": o, "ms": n,
-                                "bound_ms": bound_ms(*me_work(W, H, R))[0]}
+        timed("frame_me", tag, lambda: call("old"), lambda: call("new"),
+              lambda: M.frame_me(sp, rp, W, H, R), me_work(W, H, R))
     for tag, s in MODE_SIZES:
         src, rm, tops, lefts = mi10[tag]
         B = src.shape[0]
-        out = torch.zeros((B, 67), dtype=torch.int32, device=dev)
+        outs = {v: torch.zeros((B, 67), dtype=torch.int32, device=dev)
+                for v in ("old", "new")}
         row_start, filt, transposed = IB._device_tables(s, dev)
 
-        def old():
-            out.zero_()
-            old_call(mc_lib, "vt_mode_costs", src.data_ptr(), rm.data_ptr(),
-                     tops.data_ptr(), tops.shape[1], lefts.data_ptr(),
-                     lefts.shape[1], out.data_ptr(), B, rm.shape[2], s, 10,
-                     row_start.data_ptr(), filt.data_ptr(),
-                     transposed.data_ptr(), kernels.stream_ptr(out))
-        old()
-        got = IB.mode_costs_batch(src, rm, tops, lefts, s, s, 10)
+        def call(v):
+            out = outs[v]
+            args = (src.data_ptr(), rm.data_ptr(), tops.data_ptr(),
+                    tops.shape[1], lefts.data_ptr(), lefts.shape[1],
+                    out.data_ptr(), B, rm.shape[2], s, 10,
+                    row_start.data_ptr(), filt.data_ptr(),
+                    transposed.data_ptr(), kernels.stream_ptr(out))
+            if v == "old":
+                out.zero_()
+                old_call(mc_lib, "vt_mode_costs", *args)
+            else:
+                kernels.check("mode_costs", k11(*args))
+        call("old")
+        call("new")
         torch.cuda.synchronize()
-        if not torch.equal(out, got):
+        if not torch.equal(outs["old"], outs["new"]):
             fail(f"K11 mode_costs ({tag}): the new kernel's costs != the "
                  "old kernel's")
-        o, n = in_turns(torch, old, lambda: IB.mode_costs_batch(
-            src, rm, tops, lefts, s, s, 10), reps)
-        rec["mode_costs"][tag] = {"B": B, "old_ms": o, "ms": n,
-                                  "bound_ms": bound_ms(*mode_work(B, s))[0]}
+        timed("mode_costs", tag, lambda: call("old"), lambda: call("new"),
+              lambda: IB.mode_costs_batch(src, rm, tops, lefts, s, s, 10),
+              mode_work(B, s))
     rec["resources"]["frame_me"] = old_resources(me_lib, "vt_frame_me_attrs")
     for s in (4, 8, 16, 32, 64):
         rec["resources"][f"mode_costs {s}x{s}"] = old_resources(
@@ -1911,12 +1948,15 @@ def main(argv=None) -> int:
     if old_libs:
         cmp = old_new_phase(torch, dev, old_libs, me_cases, mi10, reps=20)
         print(f"phase 3: K5 and K11 against the kernels of {args.old_csrc}: "
-              "outputs equal; old ms -> new ms (bound), each timed old, new, "
-              "new, old", flush=True)
+              "outputs equal; old -> new ms, called alike and timed old, "
+              "new, new, old (device time of a call alone; the public "
+              "function; bound)", flush=True)
         for n in OLD_SOURCES:
             for tag, r in cmp[n].items():
                 print(f"  {n} {tag}: {r['old_ms']:.4f} -> {r['ms']:.4f} ms "
-                      f"({r['bound_ms']:.4f})")
+                      f"(device {r['old_device_ms']:.4f} -> "
+                      f"{r['device_ms']:.4f}; public "
+                      f"{r['public_ms']:.4f}; bound {r['bound_ms']:.4f})")
         for label, r in cmp["resources"].items():
             print(resource_line(f"{label} (old)", r))
         report["old_new"] = cmp

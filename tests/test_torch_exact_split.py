@@ -1,6 +1,6 @@
 """The exactness arguments of the kernels redesigned for the H100 (K3
-plan_trial, K4 presel_costs), held in numpy against integer arithmetic
-and the port's plain versions.
+plan_trial, K4 presel_costs, K5 frame_me, K11 mode_costs), held in numpy
+against integer arithmetic and the port's plain versions.
 
 K4 runs its per-sample arithmetic on the float32 pipe: every value is an
 integer below 2^24, and each (x + 32) >> 6 is one fused multiply-add of
@@ -32,13 +32,14 @@ def _fma_magic(x):
         np.float32)
 
 
-def _wht_rows(d):
+def _wht_rows(d, last=None):
     """Natural-order Hadamard along the last axis, the kernel's butterfly
-    order, in float32 (exact: every partial sum is an integer < 2^24)."""
+    order, in float32 (exact: every partial sum is an integer < 2^24);
+    with `last`, only the stages of length < last."""
     d = d.copy()
     T = d.shape[-1]
     ln = 1
-    while ln < T:
+    while ln < (last or T):
         for i in range(0, T, 2 * ln):
             for j in range(i, i + ln):
                 a, c = d[..., j].copy(), d[..., j + ln].copy()
@@ -310,3 +311,195 @@ def test_k3_tensor_core_route_equals_the_plain_version(s, qp):
                               k)
     np.testing.assert_array_equal(mk, mr.numpy())
     np.testing.assert_allclose(ck, cr.numpy(), rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K5: the pooled plane, strips of blocks, uint32 row partials
+# ---------------------------------------------------------------------------
+
+def _k5_model(sp, rp, W, H, R):
+    """K5's data flow on int16 padded planes (numpy) -> (mv [N, 2] int32,
+    cost [N] float32): strips of 4 blocks sharing one pooled window
+    (offset 4 per block), each pooled row's four squared differences
+    summed in uint32 and the rows in uint64, the (cost, index) minimum;
+    stage 2's SSEs in int32."""
+    from numpy.lib.stride_tricks import sliding_window_view as windows
+    pad, bs, q, strip = 96, 16, 4, 4
+    Hp, Wp = rp.shape
+    pool = rp.astype(np.int32).reshape(Hp // q, q, Wp // q, q).sum(
+        axis=(1, 3), dtype=np.int32)
+    nx, ny = W // bs, H // bs
+    Rq = R // q
+    span, D = 2 * Rq + bs // q, 2 * Rq + 1
+    mv = np.zeros((ny * nx, 2), np.int32)
+    cost = np.zeros(ny * nx, np.float32)
+    for by in range(ny):
+        for bx0 in range(0, nx, strip):
+            nb = min(strip, nx - bx0)
+            wy0, wx0 = by * 4 + pad // q - Rq, bx0 * 4 + pad // q - Rq
+            win = pool[wy0:wy0 + span, wx0:wx0 + span + 4 * (nb - 1)]
+            for jb in range(nb):
+                r0, c0 = pad + by * bs, pad + (bx0 + jb) * bs
+                blk = sp[r0:r0 + bs, c0:c0 + bs].astype(np.int32)
+                qb = blk.reshape(4, q, 4, q).sum(axis=(1, 3), dtype=np.int32)
+                e = windows(win[:, 4 * jb:4 * jb + span], (4, 4)) - qb
+                part = (e * e).astype(np.uint32).sum(axis=-1, dtype=np.uint32)
+                acc = part.astype(np.uint64).sum(axis=-1, dtype=np.uint64)
+                c1 = int(np.argmin(acc.ravel()))       # the first minimum
+                cy, cx = c1 // D - Rq, c1 % D - Rq
+                y2, x2 = r0 + 4 * cy - 3, c0 + 4 * cx - 3
+                e2 = windows(rp[y2:y2 + 22, x2:x2 + 22].astype(np.int32),
+                             (bs, bs)) - blk
+                s2 = (e2 * e2).sum(axis=(-2, -1), dtype=np.int32)
+                c2 = int(np.argmin(s2.ravel()))
+                b = by * nx + bx0 + jb
+                mv[b] = (4 * cx + c2 % 7 - 3, 4 * cy + c2 // 7 - 3)
+                cost[b] = np.float32(s2.ravel()[c2])
+    return mv, cost
+
+
+def test_k5_partials_are_exact_for_samples_of_11_bits():
+    """A pooled row's four squared differences fit uint32 for samples of
+    up to 11 bits (4 (16 * 2047)^2 < 2^32) and wrap at 12; stage 2's
+    256 differences fit int32 (256 * 2047^2 < 2^31)."""
+    for bits, exact in ((11, True), (12, False)):
+        e = np.full(4, 16 * ((1 << bits) - 1), np.int64)
+        wrapped = (e * e).astype(np.uint32).sum(dtype=np.uint32)
+        assert (int(wrapped) == int((e * e).sum())) == exact
+    assert 256 * 2047 ** 2 < 2 ** 31
+
+
+def _me_planes(kind, W, H, rng):
+    """(src, ref) sample planes of a K5 case."""
+    top = 2047
+    if kind == "random":
+        base = rng.randint(0, 1024, (H + 40, W + 40))
+        return base[10:10 + H, 12:12 + W], base[13:13 + H, 7:7 + W]
+    if kind == "flat":                       # every candidate ties
+        return np.full((H, W), 700), np.full((H, W), 300)
+    if kind == "max_vs_zero":                # every difference extreme
+        return np.full((H, W), top), np.zeros((H, W), np.int64)
+    yy, xx = np.mgrid[:H, :W]
+    cell = 4 if kind == "pooled_checker" else 1
+    c = np.where((yy // cell + xx // cell) % 2 == 0, top, 0)
+    return c, top - c
+
+
+@pytest.mark.parametrize("kind", ["random", "flat", "max_vs_zero",
+                                  "pooled_checker", "checker"])
+@pytest.mark.parametrize("R", [0, 4, 16, 64])
+def test_k5_model_equals_the_plain_version(R, kind):
+    """K5's data flow gives frame_me_ref's MVs and costs on a width of 5
+    blocks (a strip of 4 and a strip of 1), on flat planes (ties: the
+    lowest index wins) and at the 0 / 2047 extremes."""
+    from vvenc_tpu_torch.ops import me as M
+    W, H = 80, 48
+    src, ref = _me_planes(kind, W, H, np.random.RandomState(R))
+    sp, rp = (np.pad(a, M.ME_PAD, mode="edge").astype(np.int16)
+              for a in (src, ref))
+    mk, ck = _k5_model(sp, rp, W, H, R)
+    mr, cr = M.frame_me_ref(torch.from_numpy(sp), torch.from_numpy(rp), W, H,
+                            R)
+    np.testing.assert_array_equal(mk, mr.numpy())
+    np.testing.assert_array_equal(ck, cr.numpy())
+
+
+# ---------------------------------------------------------------------------
+# K11: the float32 route (bit depths <= 10) in the mode's own orientation
+# ---------------------------------------------------------------------------
+
+def _fma32(a, b, c):
+    """__fmaf_rn on float32 values: exact in float64 here, rounded once."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _k11_model(src, rm, tops, lefts, w, bd):
+    """K11's float32 route (numpy float32, each operation rounded as the
+    kernel's) -> costs [B, 67] int64: an angular mode's residual in its
+    own orientation (the transposed source for a horizontal mode), the
+    4-tap sum as fmas from 0.5, the round as one fma onto 1.5 * 2^23, the
+    clip on that value, the tile Hadamard in float32 with its last column
+    stage fused into the abs-sum; planar and DC in integers."""
+    from vvenc_tpu_torch.ops import intra_batch as IB
+    _, _, row_start, filt, transposed, _ = IB._mode_tables(w, w)
+    T = 8 if w % 8 == 0 else 4
+    B = len(src)
+    src_m = src.astype(np.float32) + MAGIC
+    vmax = MAGIC + np.float32((1 << bd) - 1)
+    lw = w.bit_length() - 1
+    t64, l64 = tops.astype(np.int64), lefts.astype(np.int64)
+    out = np.zeros((B, 67), np.int64)
+    for m in range(67):
+        if m >= 2:
+            sp = src_m.transpose(0, 2, 1) if transposed[m] else src_m
+            idx = row_start[m][:, None] + np.arange(w)[None, :]
+            acc = np.full((B, w, w), 0.5, np.float32)
+            for k in range(4):
+                acc = _fma32(rm[:, m][:, idx + k].astype(np.float32),
+                             filt[m][None, :, k, None].astype(np.float32), acc)
+            y = np.clip(_fma32(acc, np.float32(1 / 64), MAGIC), MAGIC, vmax)
+            d = sp - y
+        else:
+            yy, xx = np.mgrid[:w, :w]
+            if m == 0:
+                lc, tp = l64[:, 1:w + 1, None], t64[:, None, 1:w + 1]
+                trr, br = t64[:, 1 + w, None, None], l64[:, 1 + w, None, None]
+                hor = (lc << lw) + (xx + 1) * (trr - lc)
+                ver = (tp << lw) + (yy + 1) * (br - tp)
+                p = ((hor << lw) + (ver << lw) + (1 << 2 * lw)) >> (1 + 2 * lw)
+            else:
+                s = w + t64[:, 1:w + 1].sum(1) + l64[:, 1:w + 1].sum(1)
+                p = np.broadcast_to((s >> (lw + 1))[:, None, None], (B, w, w))
+            d = src_m - (p.astype(np.float32) + MAGIC)
+        t = d.reshape(B, w // T, T, w // T, T).transpose(0, 1, 3, 2, 4)
+        # rows, then the columns' stages but the last, which fuses with
+        # the abs-sum: |a + c| + |a - c| = 2 max(|a|, |c|)
+        t = _wht_rows(_wht_rows(t).swapaxes(-1, -2), last=T // 2)
+        a, c = t[..., :T // 2], t[..., T // 2:]
+        s = 2 * np.maximum(np.abs(a), np.abs(c)).reshape(
+            t.shape[:3] + (T * T // 2,)).sum(-1, dtype=np.float32) \
+            .astype(np.int64)
+        if T == 8:
+            v = (s + 2) >> 2
+        else:
+            dc = np.abs(a[..., 0, 0] + c[..., 0, 0]).astype(np.int64)
+            v = (s - dc + (dc >> 2) + 1) >> 1
+        out[:, m] = v.sum(axis=(1, 2))
+    return out
+
+
+def _mode_inputs(kind, B, w, bd, rng):
+    top = (1 << bd) - 1
+    tops = rng.randint(0, top + 1, (B, 2 * w + 3)).astype(np.int32)
+    lefts = rng.randint(0, top + 1, (B, 2 * w + 3)).astype(np.int32)
+    src = rng.randint(0, top + 1, (B, w, w)).astype(np.int32)
+    if kind == "max_src":                    # residuals at +max
+        src[:], tops[:], lefts[:] = top, 0, 0
+    elif kind == "zero_src":                 # residuals at -max
+        src[:], tops[:], lefts[:] = 0, top, top
+    elif kind == "checker":                  # taps of both signs at max
+        src[:] = np.where(np.indices((w, w)).sum(0) % 2 == 0, top, 0)
+        tops[:] = np.where(np.arange(2 * w + 3) % 2 == 0, top, 0)
+        lefts[:] = top - tops
+    lefts[:, 0] = tops[:, 0]
+    return src, tops, lefts
+
+
+@pytest.mark.parametrize("kind", ["random", "max_src", "zero_src",
+                                  "checker"])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64])
+def test_k11_float_route_equals_the_plain_version(w, bd, kind):
+    """K11's float32 route gives mode_costs_batch_ref's int32 costs on
+    random samples and at the 0 / max extremes, every size, 8 and 10
+    bits (every float32 value an integer below 2^24)."""
+    from vvenc_tpu_torch.ops import intra_batch as IB
+    B = 4 if w <= 16 else 2
+    src, tops, lefts = _mode_inputs(kind, B, w, bd,
+                                    np.random.RandomState(w + bd))
+    rm = IB.build_ref_mains(tops, lefts, w, w)
+    want = IB.mode_costs_batch_ref(*(torch.from_numpy(a) for a in
+                                     (src, rm, tops, lefts)), w, w, bd)
+    np.testing.assert_array_equal(_k11_model(src, rm, tops, lefts, w, bd),
+                                  want.numpy())

@@ -557,3 +557,103 @@ def test_plan_class_core_on_the_card_writes_no_predictions(cuda):
                                 2)
     assert torch.equal(mk.cpu(), mr)
     torch.testing.assert_close(ck.cpu(), cr, rtol=1e-5, atol=0)
+
+
+def _me_case(kind, W, H, bd, rng):
+    """(src, ref) sample planes of a K5 edge case at bit depth bd."""
+    top = (1 << bd) - 1
+    if kind == "random":
+        base = rng.randint(0, top + 1, (H + 40, W + 40))
+        return base[10:10 + H, 12:12 + W], base[13:13 + H, 7:7 + W]
+    if kind == "flat":                       # every candidate ties
+        return np.full((H, W), top // 3), np.full((H, W), top // 2)
+    if kind == "max_vs_zero":
+        return np.full((H, W), top), np.zeros((H, W), np.int64)
+    yy, xx = np.mgrid[:H, :W]
+    cell = 4 if kind == "pooled_checker" else 1
+    c = np.where((yy // cell + xx // cell) % 2 == 0, top, 0)
+    return c, top - c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10, 11])
+@pytest.mark.parametrize("kind", ["random", "flat", "max_vs_zero",
+                                  "pooled_checker", "checker"])
+@pytest.mark.parametrize("R", [0, 4, 16, 64])
+def test_frame_me_strips_ties_and_extremes(cuda, R, kind, bd):
+    """K5's MVs and costs equal to frame_me_ref's on widths of 5 and 3
+    blocks (a strip of 4 blocks and a ragged one, a ragged one alone), on
+    flat planes (every candidate ties: the lowest index wins) and on
+    0 / max planes and checkerboards at the arithmetic's extremes (11
+    bits: the largest samples it takes)."""
+    from vvenc_tpu_torch.ops import me as M
+    rng = np.random.RandomState(R * 31 + bd)
+    for W, H in ((80, 48), (48, 32)):
+        src, ref = _me_case(kind, W, H, bd, rng)
+        sp, rp = (torch.from_numpy(np.pad(a, M.ME_PAD, mode="edge")
+                                   .astype(np.int16)).to(cuda)
+                  for a in (src, ref))
+        n = kernels.launches["frame_me"]
+        mk, ck = M.frame_me(sp, rp, W, H, R)
+        mr, cr = M.frame_me_ref(sp, rp, W, H, R)
+        torch.cuda.synchronize()
+        assert kernels.launches["frame_me"] == n + 1
+        assert torch.equal(mk, mr), (W, H)
+        assert torch.equal(ck, cr), (W, H)
+
+
+def _mode_case(kind, B, s, bd, rng):
+    """(src, tops, lefts) of a K11 edge case at bit depth bd."""
+    top = (1 << bd) - 1
+    tops = rng.randint(0, top + 1, (B, 2 * s + 3)).astype(np.int32)
+    lefts = rng.randint(0, top + 1, (B, 2 * s + 3)).astype(np.int32)
+    src = rng.randint(0, top + 1, (B, s, s)).astype(np.int32)
+    if kind == "max_src":
+        src[:], tops[:], lefts[:] = top, 0, 0
+    elif kind == "zero_src":
+        src[:], tops[:], lefts[:] = 0, top, top
+    elif kind == "checker":
+        src[:] = np.where(np.indices((s, s)).sum(0) % 2 == 0, top, 0)
+        tops[:] = np.where(np.arange(2 * s + 3) % 2 == 0, top, 0)
+        lefts[:] = top - tops
+    lefts[:, 0] = tops[:, 0]
+    return src, tops, lefts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "max_src", "zero_src", "checker"])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("s", [4, 8, 16, 32, 64])
+def test_mode_costs_groups_splits_and_extremes(cuda, s, bd, kind):
+    """K11 bit-exact against mode_costs_batch_ref on batches that are not
+    a multiple of the thread block's group (B = 19 and 301: 301 64x64
+    blocks fill the card with all modes a thread block, 19 split the
+    modes), at the 0 / max extremes; 8 and 10 bits take the float32
+    route, 12 the integer one."""
+    from vvenc_tpu_torch.ops import intra_batch as IB
+    rng = np.random.RandomState(s * 3 + bd)
+    for B in (19, 301):
+        src, tops, lefts = _mode_case(kind, B, s, bd, rng)
+        rm = IB.build_ref_mains(tops, lefts, s, s)
+        args = [torch.from_numpy(a).to(cuda) for a in (src, rm, tops, lefts)]
+        c0 = kernels.launches["mode_costs"]
+        got = IB.mode_costs_batch(*args, s, s, bd)
+        want = IB.mode_costs_batch_ref(*args, s, s, bd)
+        torch.cuda.synchronize()
+        assert kernels.launches["mode_costs"] == c0 + 1
+        assert torch.equal(got, want), B
+
+
+@pytest.mark.cuda
+def test_mode_costs_integer_route_wraps_as_int32(cuda):
+    """Above 10 bits K11 keeps the reference's int32 arithmetic, wrapping
+    included: samples of 30 bits overflow the 4-tap sums and the
+    Hadamard."""
+    from vvenc_tpu_torch.ops import intra_batch as IB
+    rng = np.random.RandomState(5)
+    for s in (4, 16):
+        src, tops, lefts = _mode_case("random", 7, s, 30, rng)
+        rm = IB.build_ref_mains(tops, lefts, s, s)
+        args = [torch.from_numpy(a).to(cuda) for a in (src, rm, tops, lefts)]
+        got = IB.mode_costs_batch(*args, s, s, 30)
+        assert torch.equal(got, IB.mode_costs_batch_ref(*args, s, s, 30))

@@ -199,15 +199,18 @@ _TABLES: dict = {}
 
 
 def _device_tables(w: int, dev: torch.device):
-    """(row_start [67, w], filt [67, w, 4], transposed [67]) int32 on dev,
-    uploaded once per (size, device)."""
+    """(row_start [67, w], filt [2, 67, w, 4], transposed [67]) int32 on
+    dev, uploaded once per (size, device); filt[0] holds the taps, filt[1]
+    the bits of the same taps as float32 (K11's float route)."""
     key = (w, str(dev))
     t = _TABLES.get(key)
     if t is None:
         _, _, row_start, filt, transposed, _ = _mode_tables(w, w)
+        filt2 = np.stack([filt.astype(np.int32),
+                          filt.astype(np.float32).view(np.int32)])
         t = _TABLES[key] = tuple(
             torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
-            for a in (row_start, filt, transposed))
+            for a in (row_start, filt2, transposed))
     return t
 
 
@@ -225,7 +228,8 @@ def mode_costs_batch(src: torch.Tensor, rm: torch.Tensor, tops: torch.Tensor,
     rm:  [B, M, L] per-mode extended main refs (host-built)
     tops/lefts: [B, 2w+3] / [B, 2h+3] raw refs for planar/DC
     returns costs [B, M] int32 (SATD, no PDPC, no mode-bit term).  K11 on
-    a CUDA device, the plain version on the CPU."""
+    a CUDA device, the plain version on the CPU; at bit_depth <= 10 K11
+    runs its float32 route, exact for samples in 0 .. 2^bit_depth - 1."""
     if all(t.device.type == "cpu" for t in (src, rm, tops, lefts)):
         return mode_costs_batch_ref(src, rm, tops, lefts, w, h, bit_depth)
     dev = src.device
@@ -237,7 +241,7 @@ def mode_costs_batch(src: torch.Tensor, rm: torch.Tensor, tops: torch.Tensor,
     kernels.require(lefts, "lefts", torch.int32, 2, dev)
     ref_len = _check_inputs(src, rm, tops, lefts, w, h)
     B = src.shape[0]
-    out = torch.zeros((B, NUM_MODES), dtype=torch.int32, device=dev)
+    out = torch.empty((B, NUM_MODES), dtype=torch.int32, device=dev)
     if B == 0:
         return out
     row_start, filt, transposed = _device_tables(w, dev)

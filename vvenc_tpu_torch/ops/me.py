@@ -12,7 +12,8 @@ the JAX package's ops/me.py).
       and the first argmin); full_search_sse_batch_ref is its plain version
 
 Both compute every SSE exactly in integers: stage 1 in units of 1/16 on
-the 4x4 pooled *sums* (int64), stage 2 in int32.  The reference computes
+the 4x4 pooled *sums* (int64; K5 sums each pooled row in uint32, exact
+for samples of up to 11 bits), stage 2 in int32.  The reference computes
 the same quantities in float32 (pooled means, sums in XLA's order), which
 is exact for stage 1's samples but not for its sums; the argmins agree
 except at a near tie of the reference's rounded costs.  Ties go to the
@@ -218,9 +219,10 @@ def frame_me(src_pad: torch.Tensor, ref_pad: torch.Tensor, W: int, H: int,
     """Best integer MV per 16x16 block of the frame vs one reference.
 
     src_pad/ref_pad: [H + 2*ME_PAD, W + 2*ME_PAD] int16 edge-padded
-    planes, W and H multiples of 16, R <= 64.  Returns (mv [ny*nx, 2]
-    int32 full-pel (x, y), cost [ny*nx] float32).  K5 on a CUDA device,
-    the plain version on the CPU."""
+    planes of samples in 0 .. 2047 (K5's exact arithmetic), W and H
+    multiples of 16, R <= 64.  Returns (mv [ny*nx, 2] int32 full-pel
+    (x, y), cost [ny*nx] float32).  K5 on a CUDA device, the plain
+    version on the CPU."""
     if src_pad.device.type == "cpu" and ref_pad.device.type == "cpu":
         return frame_me_ref(src_pad, ref_pad, W, H, R)
     dev = src_pad.device
