@@ -131,7 +131,8 @@ COST_RTOL = 1e-5
 # search_step's batch on one position of graft_entry.dryrun_multichip(4)'s
 # 2x2 mesh: 2 * 2 gops x 2 tiles x 2 blocks of 16x16 over 4 positions
 SEARCH_STEP_BLOCKS = 4
-# K11's sizes in phase 3: (tag, picture, block side)
+# K11's sizes in phase 3: (tag, block side); the 1080p tags on a 1080p
+# picture, the others on a 416x240 one
 MODE_SIZES = (("1080p 16x16", 16), ("1080p 32x32", 32), ("416x240 4x4", 4),
               ("416x240 8x8", 8), ("416x240 64x64", 64))
 
@@ -1476,11 +1477,9 @@ def encode(torch, tag, clip, w, h, frames, qp, preset, extra, plan=False):
     return enc, enc.encode_seconds
 
 
-# the redesigned kernels that --old-csrc sets against an older build,
-# and the C signatures of their entries (unchanged by the redesign)
+# the redesigned kernels that --old-csrc sets against an older build
+# (their C entries kept their signatures)
 OLD_SOURCES = ("frame_me", "mode_costs")
-OLD_ARGS = {"vt_frame_me": "ppiiiippp",
-            "vt_mode_costs": "pppipipLiiipppp"}
 
 
 def build_old(csrc: str) -> dict:
@@ -1508,17 +1507,20 @@ def build_old(csrc: str) -> dict:
     return libs
 
 
-def old_call(lib, symbol: str, *args) -> None:
-    """Launches the old kernel entry `symbol`; fails if it was refused."""
+def old_function(lib, symbol: str, argtypes):
+    """The old kernel entry `symbol`, called like the current one: it
+    launches and fails the run if the launch was refused."""
     import ctypes
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "L": ctypes.c_longlong}
     fn = getattr(lib, symbol)
-    fn.argtypes = [kinds[c] for c in OLD_ARGS[symbol]]
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    err = fn(*args)
-    if err:
-        fail(f"old {symbol}: error {err} "
-             f"({lib.vt_error_string(err).decode()})")
+
+    def call(*args):
+        err = fn(*args)
+        if err:
+            fail(f"old {symbol}: error {err} "
+                 f"({lib.vt_error_string(err).decode()})")
+    return call
 
 
 def old_resources(lib, symbol: str, *args) -> dict:
@@ -1571,6 +1573,8 @@ def old_new_phase(torch, dev, libs, me_cases, mi10, reps) -> dict:
     me_lib, mc_lib = libs["frame_me"][0], libs["mode_costs"][0]
     k5 = kernels.function("frame_me", "vt_frame_me", M._K5_ARGS)
     k11 = kernels.function("mode_costs", "vt_mode_costs", IB._K11_ARGS)
+    old_k5 = old_function(me_lib, "vt_frame_me", M._K5_ARGS)
+    old_k11 = old_function(mc_lib, "vt_mode_costs", IB._K11_ARGS)
     rec = {"frame_me": {}, "mode_costs": {}, "resources": {}}
 
     def timed(kind, tag, old, new, public, work):
@@ -1593,7 +1597,7 @@ def old_new_phase(torch, dev, libs, me_cases, mi10, reps) -> dict:
                     H // M.ME_BS, R, mv.data_ptr(), cost.data_ptr(),
                     kernels.stream_ptr(mv))
             if v == "old":
-                old_call(me_lib, "vt_frame_me", *args)
+                old_k5(*args)
             else:
                 kernels.check("frame_me", k5(*args))
         call("old")
@@ -1621,7 +1625,7 @@ def old_new_phase(torch, dev, libs, me_cases, mi10, reps) -> dict:
                     transposed.data_ptr(), kernels.stream_ptr(out))
             if v == "old":
                 out.zero_()
-                old_call(mc_lib, "vt_mode_costs", *args)
+                old_k11(*args)
             else:
                 kernels.check("mode_costs", k11(*args))
         call("old")

@@ -32,9 +32,9 @@
 // candidate.  Stage 2 spreads (block, dy, row) items over all warps: a
 // lane computes the 7 dx candidates of one row, and the 16 rows of a
 // (block, dy) are summed by shuffles within a half warp.  (A pre-pass
-// pooling the whole reference plane once was 4 % faster on a 1080p pair
-// but costs a launch and a scratch plane, which a call at 832x480, bound
-// by its host side, pays in full.)
+// pooling the whole reference plane once would cost a launch and a
+// scratch plane, which a call at 832x480, bound by its host side, pays
+// in full.)
 // No product or convolution library is involved.
 #include <cuda_runtime.h>
 #include <stdint.h>
