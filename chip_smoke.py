@@ -42,21 +42,25 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      blocks of one position of dryrun_multichip(4)).
    - K5 (frame_me) on two 1920x1080 and two 832x480 pictures at R = 64,
      8 and 10 bits: MVs and costs equal; timed at 10 bits.
-   - The resources of K5's kernel and of K11's per block size.
+   - The resources of K5's kernel, of K11's per block size, of K6's
+     (both entries) per class and of K9's at its three timed shapes.
    - K6 (fwd/inv_transform_batch) and K7 (quant/dequant_batch) bit-exact
      on the residuals of 1920x1080 pictures (source minus search_step's
      chosen prediction) for every square class 4..64 plus 8x4 and 16x8,
      at 8 and 10 bits, QPs 22, 37, 51 and both slice types; timed per
-     class at 10 bits, QP 37, intra.
+     class at 10 bits, QP 37, intra; K6 also bit-exact and timed at
+     search_step's shape (4 blocks of 16x16).
    - K8-K11 through their public functions at 1080p shapes, each first
      in a path run (the full-width calls at 10 bits, the launch counts
      set to 0 just before and read just after), then against its plain
      version at 8 and 10 bits: K8 mc_batch bit-exact on the windows of
      every 16x16 block of a second picture at the 16 quarter-pel phases
      and on the 8x8 blocks of a 960x540 plane at five 1/32 phases; K9
-     full_search_sse_batch (16x16, R = 16, B = 8,040) integer SSEs and
-     argmins equal; K10 sse/sad/satd_batch bit-exact at [8040, 16, 16]
-     and [480, 64, 64], tiles 4 and 8; K11 mode_costs_batch bit-exact on
+     full_search_sse_batch integer SSEs and argmins equal on the 1080p
+     16x16 grid at R = 16 (B = 8,040), the 8x8 grid at R = 8 (B =
+     32,400) and the 64x64 grid at R = 16 (B = 480), each timed; K10
+     sse/sad/satd_batch bit-exact at [8040, 16, 16] and [480, 64, 64],
+     tiles 4 and 8; K11 mode_costs_batch bit-exact on
      the 1080p 16x16 and 32x32 grids and the 416x240 4x4, 8x8 and 64x64
      grids (8-bit: 416x240, every size), build_ref_mains (host) timed
      apart.  Times at 10 bits.
@@ -99,10 +103,15 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      graft_entry.dryrun_multichip(4), where search_step launches K1, K2,
      K6 and K7.
    With --old-csrc DIR (an older checkout's vvenc_tpu_torch/csrc, for
-   example the parent commit's, unpacked), phase 3 also builds that K5
-   and K11 and sets them against the current ones: outputs equal at
-   every K5 and K11 shape above, times taken in turns (old, new, new,
-   old), the old kernels' resources.
+   example the parent commit's, unpacked), phase 3 also builds that K5,
+   K6, K9 and K11 and sets them against the current ones, called alike:
+   outputs equal at every K5, K11 and K9 shape above (K9 also on its
+   integer route: a 12-bit checkerboard at 16x16 R = 16 and 6x6 blocks
+   at R = 8) and every K6 class and search_step's shape, times taken in
+   turns (old, new, new, old; 2000 calls a turn for K6 at search_step's
+   shape), the old kernels' resources.  K6's and K9's bounds count the
+   work as each kernel computes it (tr_bound_ms, fs_bound_ms), their
+   int32 count beside as the yardstick.
 5. Prints a {"kernels": [...]} line, then the card line, then the last
    line {"ok": true, "device": {...}}.
 
@@ -127,6 +136,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 INT8_TC_OPS_PER_S = 1979e12     # dense int8 tensor-core peak
+FP32_FLOPS_PER_S = 67e12        # float32 CUDA cores, a fused multiply-add 2
 COST_RTOL = 1e-5
 # search_step's batch on one position of graft_entry.dryrun_multichip(4)'s
 # 2x2 mesh: 2 * 2 gops x 2 tiles x 2 blocks of 16x16 over 4 positions
@@ -183,14 +193,15 @@ OLD_PLAN_KERNELS = ("intra_pred_all", "satd_modes", "plan_trial")
 CLASS_KERNELS = OLD_PLAN_KERNELS + PLAN_KERNELS
 TR_KERNELS = ("fwd_transform_batch", "inv_transform_batch", "quant_batch",
               "dequant_batch")
+K6_ENTRIES = TR_KERNELS[:2]
 # the dry run: search_step (K1, K2, K6, K7), the sharded presel (K4's
 # gathered entry) and the e2e encode with intra_plan.MESH (PLAN_KERNELS)
 MESH_KERNELS = ("intra_pred_all", "satd_modes") + PLAN_KERNELS + TR_KERNELS
 # K6/K7's classes: every square class and two rectangular ones
 TR_CLASSES = ((4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (8, 4), (16, 8))
 # the __global__ function of each K6/K7 entry, as the profiler names it
-TR_FUNCTIONS = {"fwd_transform_batch": "::fwd_kernel(",
-                "inv_transform_batch": "::inv_kernel(",
+TR_FUNCTIONS = {"fwd_transform_batch": "tr_kernel<true,",
+                "inv_transform_batch": "tr_kernel<false,",
                 "quant_batch": "::quant_kernel(",
                 "dequant_batch": "::dequant_kernel("}
 # K8-K11: the public functions that only their own callers reach
@@ -198,11 +209,13 @@ BATCH_KERNELS = ("mc_batch", "full_search_sse", "sse_batch", "sad_batch",
                  "satd_batch", "mode_costs")
 # the __global__ function of each K8-K11 entry at its timed shape
 BATCH_FUNCTIONS = {"mc_batch": "mc_kernel<8>",
-                   "full_search_sse": "::full_search_kernel(",
+                   "full_search_sse": "fs_kernel<",
                    "sse_batch": "dist_kernel<true>",
                    "sad_batch": "dist_kernel<false>",
                    "satd_batch": "satd_small_kernel<8>",
                    "mode_costs": "mode_costs_kernel<8, true>"}
+# K9's timed shapes on 1080p grids: (block side, R)
+FS_SHAPES = ((16, 16), (8, 8), (64, 16))
 # K8's phases: the 16 quarter-pel luma phases, a few 1/32 chroma ones
 LUMA_PHASES = tuple((fx, fy) for fy in (0, 4, 8, 12) for fx in (0, 4, 8, 12))
 CHROMA_PHASES = ((0, 0), (16, 0), (0, 8), (5, 27), (31, 31))
@@ -382,6 +395,40 @@ def tr_work(name: str, B: int, w: int, h: int) -> tuple:
     return 8 * n, (6 if name == "quant_batch" else 8) * n
 
 
+def tr_bound_ms(name: str, B: int, w: int, h: int) -> tuple:
+    """(least milliseconds, "bytes" or "operations") of one K6 entry on
+    B blocks of w x h as the kernel computes it: a stage that contracts
+    16 points or more runs on the int8 tensor cores, each multiply-add as
+    two int8 products (the split data operand), 2 operations each at the
+    1,979 T/s int8 peak; a 4- or 8-point stage costs 2 int32 operations a
+    multiply-add, and every output of a stage 4 (a round, a shift, two
+    clip compares), at the int32 rate.  Only the outputs the function
+    keeps are counted: the forward 64-point zero-out needs 32 of a 64-point
+    stage's outputs.  tr_work's int32 count stays the yardstick beside."""
+    nbytes = tr_work(name, B, w, h)[0]
+    if name == "fwd_transform_batch":
+        # stage 1 along w (h * min(w, 32) outputs a block), stage 2 along
+        # h on the kept min(w, 32) x min(h, 32)
+        stages = ((w, B * h * min(w, 32)), (h, B * min(w, 32) * min(h, 32)))
+    else:
+        # stage 1 along h, stage 2 along w, every output
+        stages = ((h, B * w * h), (w, B * w * h))
+    tc = sum(k * n * 2 * 2 for k, n in stages if k >= 16)
+    ops = sum(n * (4 + (2 * k if k < 16 else 0)) for k, n in stages)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(tc / INT8_TC_OPS_PER_S, ops / INT32_OPS_PER_S) * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def tr_bound(n: str, r: dict) -> tuple:
+    """(least ms, "bytes" or "operations") of TR_KERNELS entry n on
+    run_tr's record r: K6 as it computes (tr_bound_ms), K7 its int32
+    count."""
+    if n in K6_ENTRIES:
+        return tr_bound_ms(n, r["B"], r["w"], r["h"])
+    return bound_ms(*r["work"][n])
+
+
 def me_work(W: int, H: int, R: int) -> tuple:
     """(bytes, int32 operations) of K5 on one picture pair: reads both
     padded int16 planes, writes mv [N, 2] int32 + cost [N] f32; pools
@@ -418,6 +465,28 @@ def fs_work(B: int, h: int, w: int, R: int) -> tuple:
             B * g * g * h * w * 3)
 
 
+def fs_bound_ms(B: int, h: int, w: int, R: int,
+                float_route: bool = True) -> tuple:
+    """(least milliseconds, "bytes" or "operations") of K9 as the kernel
+    computes it.  On the float32 route (samples within [0, 1023], w a
+    multiple of 4, at most 4096 samples a block) SSE = sum(a^2) - 2 corr +
+    sum(b^2): the correlation one fused multiply-add per displacement and
+    sample, the a^2 windows a square per area sample and a slide (one out,
+    one in) per window row and per window, sum(b^2) a multiply-add per
+    block sample and 3 operations a displacement to combine them, at the
+    float32 peak.  On the integer route fs_work's int32 count, which stays
+    the yardstick beside both."""
+    nbytes, ops32 = fs_work(B, h, w, R)
+    if not float_route:
+        return bound_ms(nbytes, ops32)
+    g, ah, aw = 2 * R + 1, h + 2 * R, w + 2 * R
+    flops = B * (g * g * h * w * 2 + ah * aw * 2 + ah * g * 4
+                 + g * g * 4 + h * w * 2 + g * g * 3)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = flops / FP32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def dist_work(name: str, B: int, H: int, W: int, tile: int = 8) -> tuple:
     """(bytes, int32 operations) of one K10 entry: both inputs read once,
     [B] written; per sample a subtract and an add plus a multiply (sse)
@@ -437,6 +506,15 @@ def mode_work(B: int, s: int) -> tuple:
     L = 3 * s + 8
     return (B * (67 * L + s * s + 2 * (2 * s + 3) + 67) * 4,
             B * 67 * s * s * (11 + 9))
+
+
+def batch_bound(n: str, batch: dict) -> tuple:
+    """(least ms, "bytes" or "operations") of BATCH_KERNELS entry n on
+    run_batch_ops' record: K9 as it computes (fs_bound_ms, 16x16 at
+    R = 16), the others their int32 count."""
+    if n == "full_search_sse":
+        return fs_bound_ms(batch["B"], 16, 16, 16)
+    return bound_ms(*batch["work"][n])
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple:
@@ -868,7 +946,34 @@ def run_tr(torch, dev, pics, reps, plain_reps):
                 rec["device_ms"][n] = next(
                     (v for k, v in prof.items() if fname in k), None)
             recs.append(rec)
+            if (w, h) == (16, 16):
+                recs.append(tr_search_step(torch, resi, ck))
     return recs
+
+
+def tr_search_step(torch, resi, ck):
+    """K6 at search_step's shape (SEARCH_STEP_BLOCKS 16x16 blocks, 10
+    bits: the first blocks of the 1080p grid), against the plain versions
+    and timed like run_tr's classes; the record is tagged "search_step"."""
+    from vvenc_tpu_torch.ops import transforms as T
+    B, s, bd = SEARCH_STEP_BLOCKS, 16, 10
+    args = {"fwd_transform_batch": (resi[:B].contiguous(), s, s, bd),
+            "inv_transform_batch": (ck[:B].contiguous(), s, s, bd)}
+    rec = {"w": s, "h": s, "B": B, "bit_depth": bd, "search_step": True,
+           "ms": {}, "plain_ms": {}, "work": {}, "device_ms": {}}
+    for n, a in args.items():
+        kern, plain = getattr(T, n), getattr(T, n + "_ref")
+        if not torch.equal(kern(*a), plain(*a)):
+            fail(f"K6 {n} != plain at search_step's shape")
+        rec["ms"][n] = cuda_ms(torch, lambda: kern(*a), 200)
+        rec["plain_ms"][n] = cuda_ms(torch, lambda: plain(*a), 20)
+        rec["work"][n] = tr_work(n, B, s, s)
+    prof = device_ms(torch, [lambda n=n: getattr(T, n)(*args[n])
+                             for n in args], 200)
+    for n in args:
+        rec["device_ms"][n] = next((v for k, v in prof.items()
+                                    if TR_FUNCTIONS[n] in k), None)
+    return rec
 
 
 def grid_windows(torch, dev, pic, bs, span, off_y, off_x):
@@ -920,7 +1025,8 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
     argmins equal), then the times at 10 bits.  pics: {bd: (picture,
     second picture)} 1920x1080; small: {bd: 416x240 picture}; mi10,
     ref_secs: mode_grid_inputs of the 10-bit pictures.  Returns the
-    report record."""
+    report record and K9's 10-bit inputs at FS_SHAPES ({(side, R):
+    (blocks, areas)})."""
     from vvenc_tpu_torch.ops import interp as IP
     from vvenc_tpu_torch.ops import intra_batch as IB
     from vvenc_tpu_torch.ops import me as M
@@ -938,7 +1044,12 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
             "areas": grid_windows(torch, dev, p2, 16, 16 + 2 * R, -R, -R),
             "b16": grid_windows(torch, dev, p2, 16, 16, 0, 0),
             "a64": grid_windows(torch, dev, p1, 64, 64, 0, 0),
-            "b64": grid_windows(torch, dev, p2, 64, 64, 0, 0)}
+            "b64": grid_windows(torch, dev, p2, 64, 64, 0, 0),
+            # K9's shapes: every block of the s x s grid, its +-R area
+            "fs": {(fs, fr): (
+                grid_windows(torch, dev, p1, fs, fs, 0, 0),
+                grid_windows(torch, dev, p2, fs, fs + 2 * fr, -fr, -fr))
+                for fs, fr in FS_SHAPES}}
 
     def mc_calls(x, bd):
         return ([(f"luma {fx},{fy}", lambda fx=fx, fy=fy: IP.mc_batch(
@@ -992,14 +1103,16 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
                                    w, w, bd, luma)
             if not torch.equal(got, want):
                 fail(f"K8 mc_batch != plain, {tag}, {bd}-bit")
-        costs = M.full_search_sse_batch(x["blocks"], x["areas"], 16, 16)
-        ref = M.full_search_sse_batch_ref(x["blocks"], x["areas"], 16, 16)
-        if not torch.equal(costs, ref):
-            fail(f"K9 full_search_sse != plain at {bd} bits: "
-                 f"{int((costs != ref).sum())} costs differ")
-        if not torch.equal(costs.flatten(1).argmin(dim=1),
-                           ref.flatten(1).argmin(dim=1)):
-            fail(f"K9 argmins != plain at {bd} bits")
+        for (fs, fr), (blk, area) in x["fs"].items():
+            costs = M.full_search_sse_batch(blk, area, fs, fs)
+            ref = M.full_search_sse_batch_ref(blk, area, fs, fs)
+            if not torch.equal(costs, ref):
+                fail(f"K9 full_search_sse != plain at {fs}x{fs}, R={fr}, "
+                     f"{bd} bits: {int((costs != ref).sum())} costs differ")
+            if not torch.equal(costs.flatten(1).argmin(dim=1),
+                               ref.flatten(1).argmin(dim=1)):
+                fail(f"K9 argmins != plain at {fs}x{fs}, R={fr}, {bd} bits")
+            del costs, ref
         for tag, call in dist_calls(x):
             a, b = (x["blocks"], x["b16"]) if "16x16" in tag else \
                 (x["a64"], x["b64"])
@@ -1064,6 +1177,16 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
             "B": B, "work": mode_work(B, s),
             "ms": cuda_ms(torch, lambda: IB.mode_costs_batch(
                 *mi10[tag], s, s, 10), reps)}
+    for (fs, fr), (blk, area) in x10["fs"].items():
+        nb = blk.shape[0]
+        rec["per_call"][f"full_search {fs}x{fs} R={fr}"] = {
+            "B": nb, "work": fs_work(nb, fs, fs, fr),
+            "ms": cuda_ms(torch, lambda: M.full_search_sse_batch(
+                blk, area, fs, fs), reps),
+            "plain_ms": cuda_ms(torch, lambda: M.full_search_sse_batch_ref(
+                blk, area, fs, fs), plain_reps),
+            "device_ms": call_device_ms(torch, lambda: M.full_search_sse_batch(
+                blk, area, fs, fs), reps)}
     rec["per_call"]["satd_batch tile 4"] = {
         "ms": cuda_ms(torch, lambda: RD.satd_batch(x10["blocks"],
                                                    x10["b16"], 4), reps),
@@ -1075,7 +1198,7 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
         rec["device_ms"][n] = next(
             (v for k, v in prof.items() if fname in k), None)
     rec["B"] = B16
-    return rec
+    return rec, x10["fs"]
 
 
 def api_phase(torch, kernels, clips, tmp, report):
@@ -1479,7 +1602,7 @@ def encode(torch, tag, clip, w, h, frames, qp, preset, extra, plan=False):
 
 # the redesigned kernels that --old-csrc sets against an older build
 # (their C entries kept their signatures)
-OLD_SOURCES = ("frame_me", "mode_costs")
+OLD_SOURCES = ("frame_me", "mode_costs", "transform_batch", "full_search")
 
 
 def build_old(csrc: str) -> dict:
@@ -1536,9 +1659,14 @@ def old_resources(lib, symbol: str, *args) -> dict:
     return dict(zip(kernels.RESOURCE_KEYS, out))
 
 
-def call_device_ms(torch, fn, reps: int) -> float:
+def dev_str(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def call_device_ms(torch, fn, reps: int):
     """Device milliseconds per fn() call: every CUDA kernel it launches,
-    summed (torch.profiler's CUDA activity, after a warm-up call)."""
+    summed (torch.profiler's CUDA activity, after a warm-up call); None
+    when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1546,8 +1674,9 @@ def call_device_ms(torch, fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.self_device_time_total > 0) / reps / 1e3
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.self_device_time_total > 0)
+    return total / reps / 1e3 if total > 0 else None
 
 
 def in_turns(torch, old, new, reps) -> tuple:
@@ -1557,16 +1686,57 @@ def in_turns(torch, old, new, reps) -> tuple:
     return (o1 + o2) / 2, (n1 + n2) / 2
 
 
-def old_new_phase(torch, dev, libs, me_cases, mi10, reps) -> dict:
-    """K5 and K11 against the older build `libs` (build_old) in one call:
-    the old kernels' outputs equal to the new ones' (K5 MVs and costs,
-    K11 costs) at every shape; both kernels called the same way (one
-    ctypes call into each library, the old K11 with the zeroed output it
-    needs) and timed in turns, CUDA events around back-to-back calls,
-    then the device time of each call alone (profiler) and the new
-    public function's time; the old kernels' resources.  me_cases: {tag:
-    (src plane, ref plane, W, H, R)}; mi10: K11's inputs by MODE_SIZES
-    tag.  Returns the record."""
+def tr_cases(torch, dev, pic) -> dict:
+    """K6's inputs at 10 bits for the old/new comparison: {tag: (w, h,
+    residuals, coefficients)} for every class of TR_CLASSES on the 1080p
+    picture pic, and search_step's shape."""
+    from vvenc_tpu_torch.ops import transforms as T
+    H, W = pic.shape
+    plane = padded_plane(torch, dev, pic)
+    out = {}
+    for (w, h) in TR_CLASSES:
+        resi = residuals(torch, plane, W, H, w, h, 10)
+        out[f"{w}x{h}"] = (w, h, resi, T.fwd_transform_batch(resi, w, h, 10))
+    w, h, resi, ck = out["16x16"]
+    B = SEARCH_STEP_BLOCKS
+    out["search_step 16x16"] = (w, h, resi[:B].contiguous(),
+                                ck[:B].contiguous())
+    return out
+
+
+def fs_int_cases(torch, dev, pic) -> dict:
+    """K9's inputs on its integer route for the old/new comparison:
+    {tag: (h, w, R, blocks, areas)}: a 0 / 4095 checkerboard (12 bits,
+    every group of the persistent grid staged again as int32) at 16x16,
+    R = 16 on the 1080p grid's 8,040 blocks, and the 1080p 6x6 grid at
+    R = 8 of the 10-bit picture pic (w not a multiple of 4: a thread
+    block a block)."""
+    H, W = pic.shape
+    B, s, R = (H // 16) * (W // 16), 16, 16
+    a = s + 2 * R
+    yy, xx = np.mgrid[:a, :a]
+    board = torch.from_numpy(((yy + xx) % 2 * 4095).astype(np.int32)).to(dev)
+    areas = board.expand(B, a, a).contiguous()
+    blocks = (4095 - board[R:R + s, R + 1:R + 1 + s]).expand(B, s, s) \
+        .contiguous()
+    return {"16x16 R=16 12-bit checkerboard": (s, s, R, blocks, areas),
+            "6x6 R=8": (6, 6, 8, grid_windows(torch, dev, pic, 6, 6, 0, 0),
+                        grid_windows(torch, dev, pic, 6, 22, -8, -8))}
+
+
+def old_new_phase(torch, dev, libs, me_cases, mi10, k6_cases, fs_cases,
+                  reps) -> dict:
+    """K5, K6, K9 and K11 against the older build `libs` (build_old) in
+    one call: the old kernels' outputs equal to the new ones' (K5 MVs and
+    costs, K6 coefficients or residuals, K9 and K11 costs) at every shape;
+    both kernels called the same way (one ctypes call into each library,
+    the old K11 with the zeroed output it needs) and timed in turns, CUDA
+    events around back-to-back calls (K6 at search_step's shape 2000
+    calls a turn), then the device time of each call alone (profiler) and
+    the new public function's time; the old kernels' resources.
+    me_cases: {tag: (src plane, ref plane, W, H, R)}; mi10: K11's inputs
+    by MODE_SIZES tag; k6_cases: tr_cases; fs_cases: {tag: (h, w, R,
+    blocks, areas)}.  Returns the record."""
     from vvenc_tpu_torch.ops import intra_batch as IB
     from vvenc_tpu_torch.ops import kernels
     from vvenc_tpu_torch.ops import me as M
@@ -1577,13 +1747,14 @@ def old_new_phase(torch, dev, libs, me_cases, mi10, reps) -> dict:
     old_k11 = old_function(mc_lib, "vt_mode_costs", IB._K11_ARGS)
     rec = {"frame_me": {}, "mode_costs": {}, "resources": {}}
 
-    def timed(kind, tag, old, new, public, work):
-        o, n = in_turns(torch, old, new, reps)
+    def timed(kind, tag, old, new, public, bound, yardstick=None,
+              turn_reps=reps):
+        o, n = in_turns(torch, old, new, turn_reps)
         rec[kind][tag] = {
             "old_ms": o, "ms": n, "public_ms": cuda_ms(torch, public, reps),
             "old_device_ms": call_device_ms(torch, old, reps),
             "device_ms": call_device_ms(torch, new, reps),
-            "bound_ms": bound_ms(*work)[0]}
+            "bound_ms": bound[0], "int32_bound_ms": yardstick}
 
     for tag, (sp, rp, W, H, R) in me_cases.items():
         B = (W // M.ME_BS) * (H // M.ME_BS)
@@ -1608,7 +1779,8 @@ def old_new_phase(torch, dev, libs, me_cases, mi10, reps) -> dict:
             fail(f"K5 frame_me ({tag}): the new kernel's MVs or costs != "
                  "the old kernel's")
         timed("frame_me", tag, lambda: call("old"), lambda: call("new"),
-              lambda: M.frame_me(sp, rp, W, H, R), me_work(W, H, R))
+              lambda: M.frame_me(sp, rp, W, H, R),
+              bound_ms(*me_work(W, H, R)))
     for tag, s in MODE_SIZES:
         src, rm, tops, lefts = mi10[tag]
         B = src.shape[0]
@@ -1636,11 +1808,75 @@ def old_new_phase(torch, dev, libs, me_cases, mi10, reps) -> dict:
                  "old kernel's")
         timed("mode_costs", tag, lambda: call("old"), lambda: call("new"),
               lambda: IB.mode_costs_batch(src, rm, tops, lefts, s, s, 10),
-              mode_work(B, s))
+              bound_ms(*mode_work(B, s)))
+    from vvenc_tpu_torch.ops import transforms as T
+    tr_lib, fs_lib = libs["transform_batch"][0], libs["full_search"][0]
+    for n, inverse in (("fwd_transform_batch", 0), ("inv_transform_batch", 1)):
+        rec[n] = {}
+        for tag, (w, h, resi, ck) in k6_cases.items():
+            x = ck if inverse else resi
+            outs = {v: torch.empty_like(x) for v in ("old", "new")}
+            # the arguments the wrappers pass (ops/transforms.k6_launch)
+            launch = {v: T.k6_launch(x, outs[v], w, h, 10, bool(inverse))
+                      for v in outs}
+            sym, argt = launch["new"][:2]
+            new_fn = kernels.function("transform_batch", sym, argt)
+            old_fn = old_function(tr_lib, sym, argt)
+            args = {v: launch[v][2] for v in outs}
+
+            def call(v):
+                if v == "old":
+                    old_fn(*args[v])
+                else:
+                    kernels.check("transform_batch", new_fn(*args[v]))
+            call("old")
+            call("new")
+            torch.cuda.synchronize()
+            if not torch.equal(outs["old"], outs["new"]):
+                fail(f"K6 {n} ({tag}): the new kernel's output != the old "
+                     "kernel's")
+            timed(n, tag, lambda: call("old"), lambda: call("new"),
+                  lambda: getattr(T, n)(x, w, h, 10),
+                  tr_bound_ms(n, x.shape[0], w, h),
+                  bound_ms(*tr_work(n, x.shape[0], w, h))[0],
+                  2000 if tag.startswith("search_step") else reps)
+    k9 = kernels.function("full_search", "vt_full_search_sse", M._K9_ARGS)
+    old_k9 = old_function(fs_lib, "vt_full_search_sse", M._K9_ARGS)
+    rec["full_search_sse"] = {}
+    for tag, (bh, bw, R, blk, area) in fs_cases.items():
+        B = blk.shape[0]
+        outs = {v: torch.empty((B, 2 * R + 1, 2 * R + 1), dtype=torch.float32,
+                               device=dev) for v in ("old", "new")}
+
+        def call(v):
+            out = outs[v]
+            args = (blk.data_ptr(), area.data_ptr(), out.data_ptr(), B, bh,
+                    bw, area.shape[1], area.shape[2], kernels.stream_ptr(out))
+            if v == "old":
+                old_k9(*args)
+            else:
+                kernels.check("full_search", k9(*args))
+        call("old")
+        call("new")
+        torch.cuda.synchronize()
+        if not torch.equal(outs["old"], outs["new"]):
+            fail(f"K9 full_search_sse ({tag}): the new kernel's costs != "
+                 "the old kernel's")
+        float_route = "checkerboard" not in tag and bw % 4 == 0
+        timed("full_search_sse", tag, lambda: call("old"),
+              lambda: call("new"),
+              lambda: M.full_search_sse_batch(blk, area, bh, bw),
+              fs_bound_ms(B, bh, bw, R, float_route),
+              bound_ms(*fs_work(B, bh, bw, R))[0])
     rec["resources"]["frame_me"] = old_resources(me_lib, "vt_frame_me_attrs")
     for s in (4, 8, 16, 32, 64):
         rec["resources"][f"mode_costs {s}x{s}"] = old_resources(
             mc_lib, "vt_mode_costs_attrs", s)
+    for label, src, symbol, args in resource_rows():
+        lib = {"transform_batch": tr_lib, "full_search": fs_lib}.get(src)
+        # an older build may lack the K6 / K9 resource queries
+        if lib is not None and hasattr(lib, symbol):
+            rec["resources"][label] = old_resources(lib, symbol, *args)
     return rec
 
 
@@ -1662,7 +1898,8 @@ def write_json(json_path, report: dict) -> None:
 def resource_rows() -> list:
     """(label, source, vt_*_attrs symbol, int arguments) of every kernel
     whose resources phase 3 prints: K3 (both entries) and K4 (both
-    entries) per class, K5, K11 per block size."""
+    entries) per class, K5, K11 per block size, K6 (both entries) per
+    class, K9 at its timed shapes."""
     from vvenc_tpu_torch.ops import intra_presel as S
     from vvenc_tpu_torch.ops.tables import presel_mode_tables
     rows = [(f"{name} {s}x{s}", "plan_trial", f"vt_{name}_attrs", (s, s))
@@ -1675,6 +1912,15 @@ def resource_rows() -> list:
     rows.append(("frame_me", "frame_me", "vt_frame_me_attrs", ()))
     rows += [(f"mode_costs {s}x{s}", "mode_costs", "vt_mode_costs_attrs",
               (s,)) for s in (4, 8, 16, 32, 64)]
+    rows += [(f"transform_batch {n} {w}x{h}", "transform_batch",
+              "vt_transform_batch_attrs", (w, h, inv))
+             for (w, h) in TR_CLASSES for inv, n in ((0, "fwd"), (1, "inv"))]
+    rows += [(f"full_search {s}x{s} R={R}", "full_search",
+              "vt_full_search_attrs", (s, s, s + 2 * R, s + 2 * R))
+             for s, R in FS_SHAPES]
+    # a shape the float route does not take (w not a multiple of 4)
+    rows.append(("full_search 6x6 R=8", "full_search", "vt_full_search_attrs",
+                 (6, 6, 22, 22)))
     return rows
 
 
@@ -1686,9 +1932,10 @@ def resource_line(label: str, r: dict) -> str:
 
 
 def print_resources() -> dict:
-    """Prints and returns the resources of K3's, K4's, K5's and K11's
-    kernels (registers, shared memory, threads, resident blocks per SM and
-    local memory, from each source's vt_*_attrs query on this card)."""
+    """Prints and returns the resources of K3's, K4's, K5's, K6's, K9's
+    and K11's kernels (registers, shared memory, threads, resident blocks
+    per SM and local memory, from each source's vt_*_attrs query on this
+    card)."""
     from vvenc_tpu_torch.ops import kernels
     out = {}
     for label, src, symbol, args in resource_rows():
@@ -1825,7 +2072,8 @@ def main(argv=None) -> int:
                     help="also write the detailed numbers to this file")
     ap.add_argument("--old-csrc", default=None,
                     help="a csrc/ directory of an older checkout: also "
-                         "build its K5 and K11 sources and set them against "
+                         "build its K5, K6, K9 and K11 sources and set them "
+                         "against "
                          "the current ones (outputs equal, times in turns, "
                          "resources)")
     args = ap.parse_args(argv)
@@ -1910,21 +2158,25 @@ def main(argv=None) -> int:
           f"bit-exact on {len(TR_CLASSES)} classes of {W}x{H} residuals, "
           "8 and 10 bits, QPs 22/37/51, both slice types; at 10 bits, QP "
           "37:", flush=True)
-    def dev_str(v):
-        return "not measured" if v is None else f"{v:.4f}"
     for r in trecs:
-        print(f"  class {r['w']:2d}x{r['h']:<2d} B={r['B']:6d}: " + ", ".join(
+        tag = "search_step" if r.get("search_step") else "class"
+        print(f"  {tag} {r['w']:2d}x{r['h']:<2d} B={r['B']:6d}: " + ", ".join(
             f"{n} {r['ms'][n]:.4f} ms (kernel alone "
             f"{dev_str(r['device_ms'][n])}, plain {r['plain_ms'][n]:.3f}, "
-            f"bound {bound_ms(*r['work'][n])[0]:.4f})" for n in TR_KERNELS))
+            f"bound {tr_bound(n, r)[0]:.5f}" + (
+                f", int32 yardstick {bound_ms(*r['work'][n])[0]:.5f})"
+                if n in K6_ENTRIES else ")")
+            for n in TR_KERNELS if n in r["ms"]))
     report["transforms"] = trecs
-    tr16 = next(r for r in trecs if (r["w"], r["h"]) == (16, 16))
+    tr16 = next(r for r in trecs if (r["w"], r["h"]) == (16, 16)
+                and not r.get("search_step"))
+    trss = next(r for r in trecs if r.get("search_step"))
 
     # phase 3, K8-K11: their public functions at 1080p shapes
     pair8 = luma_frames(W, H, 2, 8, seed=81)
     small = {bd: luma_frames(416, 240, 1, bd, seed=91)[0] for bd in (8, 10)}
     mi10, ref_secs = mode_grid_inputs(torch, dev, pic10, small[10])
-    batch = run_batch_ops(
+    batch, batch_fs_cases = run_batch_ops(
         torch, dev, kernels,
         {10: (pic10, luma_frames(W, H, 2, 10, seed=31)[1]),
          8: tuple(pair8)}, small, mi10, ref_secs, reps=20, plain_reps=2)
@@ -1939,28 +2191,45 @@ def main(argv=None) -> int:
               f"{k} {v:.2f} s" for k, v in
               batch["build_ref_mains_s"].items()), flush=True)
     for n in BATCH_KERNELS:
+        bms, by = batch_bound(n, batch)
         print(f"  {n}: {batch['ms'][n]:.4f} ms (kernel alone "
               f"{dev_str(batch['device_ms'][n])}, plain "
-              f"{batch['plain_ms'][n]:.3f}, bound "
-              f"{bound_ms(*batch['work'][n])[0]:.4f} "
-              f"{bound_ms(*batch['work'][n])[1]})")
+              f"{batch['plain_ms'][n]:.3f}, bound {bms:.4f} {by}" + (
+                  f"; int32 yardstick {bound_ms(*batch['work'][n])[0]:.4f})"
+                  if n == "full_search_sse" else ")"))
+    for fs, fr in FS_SHAPES:
+        r = batch["per_call"][f"full_search {fs}x{fs} R={fr}"]
+        fsb = fs_bound_ms(r["B"], fs, fs, fr)[0]
+        print(f"  full_search {fs}x{fs} R={fr} B={r['B']}: {r['ms']:.4f} ms "
+              f"(device {dev_str(r['device_ms'])}, plain "
+              f"{r['plain_ms']:.3f}, bound {fsb:.4f}; int32 yardstick "
+              f"{bound_ms(*r['work'])[0]:.4f})")
     for tag, _ in MODE_SIZES:
         r = batch["per_call"][f"mode_costs {tag}"]
         print(f"  mode_costs {tag} B={r['B']}: {r['ms']:.4f} ms (bound "
               f"{bound_ms(*r['work'])[0]:.4f})")
     report["batch_ops"] = batch
     if old_libs:
-        cmp = old_new_phase(torch, dev, old_libs, me_cases, mi10, reps=20)
-        print(f"phase 3: K5 and K11 against the kernels of {args.old_csrc}: "
+        fs_cases = {f"{s}x{s} R={R}": (s, s, R) + batch_fs_cases[(s, R)]
+                    for s, R in FS_SHAPES}
+        fs_cases.update(fs_int_cases(torch, dev, pic10))
+        cmp = old_new_phase(torch, dev, old_libs, me_cases, mi10,
+                            tr_cases(torch, dev, pic10), fs_cases, reps=20)
+        print(f"phase 3: K5, K6, K9 and K11 against the kernels of "
+              f"{args.old_csrc}: "
               "outputs equal; old -> new ms, called alike and timed old, "
               "new, new, old (device time of a call alone; the public "
               "function; bound)", flush=True)
-        for n in OLD_SOURCES:
+        for n in ("frame_me", "mode_costs") + K6_ENTRIES + (
+                "full_search_sse",):
             for tag, r in cmp[n].items():
+                yard = r["int32_bound_ms"]
                 print(f"  {n} {tag}: {r['old_ms']:.4f} -> {r['ms']:.4f} ms "
-                      f"(device {r['old_device_ms']:.4f} -> "
-                      f"{r['device_ms']:.4f}; public "
-                      f"{r['public_ms']:.4f}; bound {r['bound_ms']:.4f})")
+                      f"(device {dev_str(r['old_device_ms'])} -> "
+                      f"{dev_str(r['device_ms'])}; public "
+                      f"{r['public_ms']:.4f}; bound {r['bound_ms']:.5f}"
+                      + ("" if yard is None else
+                         f", int32 yardstick {yard:.5f}") + ")")
         for label, r in cmp["resources"].items():
             print(resource_line(f"{label} (old)", r))
         report["old_new"] = cmp
@@ -2014,14 +2283,15 @@ def main(argv=None) -> int:
     # medium all-intra encode, K5 VVEncImpl streaming config 2, K4's
     # gathered entry that encode with intra_presel.MESH set, K6 and K7
     # dryrun_multichip(4), K8-K11 the full-width calls of their public
-    # functions); each time is at the shape its launches run: K1 and K2
-    # search_step's, both K3 entries config 1's plan batch, K5 832x480
-    # (phase 3 prints K1/K2 on the plan batch and K5 at 1080p beside)
+    # functions); each time is at the shape its launches run: K1, K2 and
+    # K6 search_step's, both K3 entries config 1's plan batch, K5 832x480
+    # (phase 3 prints K1/K2 on the plan batch, K5 at 1080p and K6 on the
+    # 1080p classes beside)
     entries = []
     for n, (src, replaces) in KERNELS.items():
         if n in BATCH_KERNELS:
             ms, plain_ms, err = batch["ms"][n], batch["plain_ms"][n], 0.0
-            bms, by = bound_ms(*batch["work"][n])
+            bms, by = batch_bound(n, batch)
             path = "dist_batch" if n in ("sse_batch", "sad_batch",
                                          "satd_batch") else n
             nl = batch["launches"][path][n]
@@ -2049,9 +2319,12 @@ def main(argv=None) -> int:
                 r["plain_ms"] for r in precs), gbound, gby, 0.0
             nl = mesh_launches["encodes"]["hd_medium"][n]
         elif n in TR_KERNELS:
+            # K6 at search_step's shape, where dryrun_multichip(4)
+            # launches it (phase 3 prints the 1080p classes beside); K7
             # the 1080p 16x16 grid (B = 8,040) at 10 bits, QP 37
-            ms, plain_ms, err = tr16["ms"][n], tr16["plain_ms"][n], 0.0
-            bms, by = bound_ms(*tr16["work"][n])
+            r = trss if n in K6_ENTRIES else tr16
+            ms, plain_ms, err = r["ms"][n], r["plain_ms"][n], 0.0
+            bms, by = tr_bound(n, r)
             nl = mesh_launches["dryrun"][n]
         else:
             # config 2's 832x480, where VVEncImpl streaming launches it

@@ -1,6 +1,7 @@
 """The exactness arguments of the kernels redesigned for the H100 (K3
-plan_trial, K4 presel_costs, K5 frame_me, K11 mode_costs), held in numpy
-against integer arithmetic and the port's plain versions.
+plan_trial, K4 presel_costs, K5 frame_me, K6 transform_batch, K9
+full_search_sse, K11 mode_costs), held in numpy against integer
+arithmetic and the port's plain versions.
 
 K4 runs its per-sample arithmetic on the float32 pipe: every value is an
 integer below 2^24, and each (x + 32) >> 6 is one fused multiply-add of
@@ -503,3 +504,213 @@ def test_k11_float_route_equals_the_plain_version(w, bd, kind):
                                      (src, rm, tops, lefts)), w, w, bd)
     np.testing.assert_array_equal(_k11_model(src, rm, tops, lefts, w, bd),
                                   want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# K6: split-int8 stages of 16 points and more, the integer pipe below, the
+# integer route for inputs outside [-2^15, 2^15)
+# ---------------------------------------------------------------------------
+
+def _wrap_shift(acc, shift):
+    """clip((acc + 2^(shift-1)) >> shift) with acc and the rounding add
+    wrapped to int32, as the reference's XLA int32 arithmetic."""
+    v = (np.asarray(acc, np.int64) + (1 << (shift - 1))) & 0xFFFFFFFF
+    v = np.where(v >= 1 << 31, v - (1 << 32), v)
+    return np.clip(v >> shift, -(1 << 15), (1 << 15) - 1)
+
+
+def _k6_model(x, w, h, bd, fwd):
+    """K6's data flow on x [B, h, w]: each stage of 16 points or more
+    through _split_product (which asserts every int32 partial), the 4- and
+    8-point stages and the integer route (a block's input outside
+    [-2^15, 2^15) when stage 1 is on the tensor cores) in int64 wrapped
+    to int32; the forward 64-point zero-out computes only the kept
+    32x32 corner."""
+    from vvenc_tpu_torch.ops import transforms as TR
+    tw = TR.tr_matrix(w, TR.DCT2).astype(np.int64)
+    th = TR.tr_matrix(h, TR.DCT2).astype(np.int64)
+    k1, k2 = (w, h) if fwd else (h, w)
+    s1 = (w.bit_length() - 1) + bd - 9 if fwd else 7
+    s2 = (h.bit_length() - 1) + 6 if fwd else 20 - bd
+    out = np.zeros(x.shape, np.int64)
+    for b, X in enumerate(np.asarray(x, np.int64)):
+        wide = k1 >= 16 and (X.min() < -(1 << 15) or X.max() >= 1 << 15)
+
+        def prod(T, D, k):
+            return T @ D if wide or k < 16 else _split_product(T, D)
+        if fwd:
+            tmp = _wrap_shift(prod(tw, X.T, k1).T, s1)       # [y][u]
+            kv, ku = (min(h, 32), min(w, 32)) if w > 32 or h > 32 \
+                else (h, w)
+            out[b, :kv, :ku] = _wrap_shift(
+                prod(th[:kv], tmp[:, :ku], k2), s2)
+        else:
+            tmp = _wrap_shift(prod(th.T, X, k1), s1)         # [y][u]
+            out[b] = _wrap_shift(prod(tw.T, tmp.T, k2).T, s2)
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("h", [4, 8, 16, 32, 64])
+def test_k6_split_stages_equal_the_plain_version(w, h):
+    """Both directions of every (w, h) pair, rectangular classes and the
+    64-point zero-out included: residuals at +-(2^bd - 1) (8 and 10
+    bits), coefficients at -2^15 and 2^15 - 1 (the split's extremes), and
+    a block past 2^15 (the integer route, wrapping) beside in-range ones;
+    equal to fwd/inv_transform_batch_ref."""
+    from vvenc_tpu_torch.ops import transforms as TR
+    rng = np.random.RandomState(w * 64 + h)
+    cases = []
+    for bd in (8, 10):
+        top = (1 << bd) - 1
+        x = rng.randint(-top, top + 1, (3, h, w))
+        x[0] = np.where(np.indices((h, w)).sum(0) % 2 == 0, top, -top)
+        cases.append((x, bd))
+    c = rng.choice([-(1 << 15), (1 << 15) - 1], (3, h, w))
+    c[1] = rng.choice([-(1 << 20), 1 << 30, 1 << 15], (h, w))
+    cases.append((c, 10))
+    for x, bd in cases:
+        x = x.astype(np.int32)
+        t = torch.from_numpy(x)
+        np.testing.assert_array_equal(
+            _k6_model(x, w, h, bd, True),
+            TR.fwd_transform_batch_ref(t, w, h, bd).numpy())
+        np.testing.assert_array_equal(
+            _k6_model(x, w, h, bd, False),
+            TR.inv_transform_batch_ref(t, w, h, bd).numpy())
+
+
+# ---------------------------------------------------------------------------
+# K9: the float32 route's correlation, box sums and uint32 combination
+# ---------------------------------------------------------------------------
+
+K9_SPAN = 1023            # full_search.cu kSpan
+K9_MAGIC_BITS = 0x4B000000
+
+
+def _k9_float_route(block, area):
+    """K9's route test: the float route takes samples in [0, K9_SPAN]."""
+    return min(block.min(), area.min()) >= 0 and \
+        max(block.max(), area.max()) <= K9_SPAN
+
+
+def _k9_model(block, area):
+    """K9's float32 route on one block [h, w] and its area [ah, aw]
+    (samples in [0, K9_SPAN]) -> the uint32 SSE of every displacement:
+    per area row and chunk of CH = 8 columns (4 when 8 does not divide w)
+    the window sum of a^2 and the partial correlation, each started at
+    2^23 and taken as a float32 bit pattern; u sums bits(a^2) - 2
+    bits(correlation) in uint32, and SSE = u + chunks * bits(2^23) +
+    sum(b^2) mod 2^32."""
+    assert _k9_float_route(block, area)
+    a, b = area.astype(np.int64), block.astype(np.int64)
+    h, w = b.shape
+    ch = 8 if w % 8 == 0 else 4
+    win = np.lib.stride_tricks.sliding_window_view(a, (h, w))  # [gh,gw,h,w]
+
+    def bits(part):
+        assert part.max() < 1 << 23
+        f = (part + (1 << 23)).astype(np.float32)
+        assert np.array_equal(f.astype(np.int64), part + (1 << 23))  # exact
+        return f.view(np.uint32).astype(np.int64)
+    shape = win.shape[:3] + (w // ch, ch)
+    corr = bits((win * b).reshape(shape).sum(-1))
+    sq = bits((win * win).reshape(shape).sum(-1))
+    u = (sq - 2 * corr).sum(axis=(2, 3))
+    nchunks = h * (w // ch)
+    bsq = int((b * b).sum())
+    return (u + nchunks * K9_MAGIC_BITS + bsq) % (1 << 32)
+
+
+@pytest.mark.parametrize("h,w,ah,aw,kind", [
+    (64, 64, 66, 66, "checker"), (64, 64, 70, 68, "random"),
+    (16, 16, 48, 48, "random"), (16, 16, 48, 48, "checker"),
+    (8, 8, 24, 24, "random"), (4, 4, 12, 12, "checker"),
+    (12, 20, 19, 41, "random"), (8, 16, 8, 80, "max_vs_zero")])
+def test_k9_float_route_equals_the_int64_sse(h, w, ah, aw, kind):
+    """The float route's SSEs equal the direct int64 SSE
+    (full_search_sse_np) and, rounded to float32, the plain version's:
+    0 / 1023 checkerboards (the largest SSE: 64x64 at 4096 * 1023^2, just
+    below 2^32), random 10-bit data, rectangular areas, w = 20 (partials
+    of 4), and a block at 1023 over an area of 0."""
+    from vvenc_tpu_torch.ops import me as M
+    rng = np.random.RandomState(h * 3 + w + ah)
+    if kind == "checker":
+        block = np.where(np.indices((h, w)).sum(0) % 2 == 0, K9_SPAN, 0)
+        area = np.where(np.indices((ah, aw)).sum(0) % 2 == 0, 0, K9_SPAN)
+    else:
+        block = rng.randint(0, K9_SPAN + 1, (h, w))
+        area = rng.randint(0, K9_SPAN + 1, (ah, aw))
+        if kind == "max_vs_zero":
+            block, area = np.full_like(block, K9_SPAN), np.zeros_like(area)
+    block, area = block.astype(np.int32), area.astype(np.int32)
+    want = M.full_search_sse_np(block, area)
+    np.testing.assert_array_equal(_k9_model(block, area), want)
+    ref = M.full_search_sse_batch_ref(torch.from_numpy(block[None]),
+                                      torch.from_numpy(area[None]), h, w)
+    np.testing.assert_array_equal(want.astype(np.float32), ref[0].numpy())
+
+
+def test_k9_range_threshold_and_partial_bits():
+    """1023 is the largest sample the float route takes: 8 products stay
+    below 2^23 and a 64x64 SSE below 2^32 only up to it (at 1024 the
+    partial reaches 2^23 and the checkerboard's SSE wraps to 0 in
+    uint32), so 1024 and negative samples take the integer route; a
+    partial p < 2^23 started at 2^23 is the float32 whose bit pattern is
+    0x4B000000 + p."""
+    z = np.zeros((4, 4), np.int64)
+    assert _k9_float_route(z + K9_SPAN, z)
+    assert not _k9_float_route(z + K9_SPAN + 1, z)
+    assert not _k9_float_route(z, z - 1)
+    assert 8 * K9_SPAN ** 2 < 1 << 23 <= 8 * (K9_SPAN + 1) ** 2
+    assert 4096 * K9_SPAN ** 2 < 1 << 32 <= 4096 * (K9_SPAN + 1) ** 2
+    assert (4096 * (K9_SPAN + 1) ** 2) % (1 << 32) == 0
+    p = np.array([0, 1, 8 * K9_SPAN ** 2, (1 << 23) - 1], np.int64)
+    f = (p + (1 << 23)).astype(np.float32)
+    np.testing.assert_array_equal(f.view(np.uint32).astype(np.int64),
+                                  K9_MAGIC_BITS + p)
+
+
+def _k9_integer_route(block, area):
+    """K9's integer route on one block [h, w] and its area: per sample
+    |a - b| as uint32 (__sad of two int32), squared and added by one
+    32 x 32 -> 64-bit multiply-add into a uint64 sum (mod 2^64), read back
+    as int64."""
+    a = area.astype(np.int64)
+    b = block.astype(np.int64)
+    win = np.lib.stride_tricks.sliding_window_view(a, b.shape)
+    # sad.s32: (a < b ? b - a : a - b) in 32-bit unsigned arithmetic
+    d = np.where(win < b, b - win, win - b) % (1 << 32)
+    assert np.array_equal(d, np.abs(win - b))  # exact: |a - b| < 2^32
+    sq = d.astype(np.uint64) * d.astype(np.uint64)      # mod 2^64
+    return sq.sum(axis=(2, 3), dtype=np.uint64).view(np.int64)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 4095), (0, 65535), (-1, 0),
+                                   (-(1 << 31), (1 << 31) - 1),
+                                   (-(1 << 20), 1 << 20)])
+def test_k9_integer_route_equals_the_int64_sse(lo, hi):
+    """The integer route's sums have the bits of the int64 sum of (a -
+    b)^2 that the plain version takes, for int32 samples anywhere in
+    [lo, hi]: 0 / max checkerboards (12 and 16 bits), -1 / 0, the int32
+    extremes (each square near 2^64, the sums wrapping as int64 does) and
+    random data past 2^20."""
+    from vvenc_tpu_torch.ops import me as M
+    h, w, ah, aw = 6, 10, 13, 19
+    rng = np.random.RandomState(hi % 1000 + 7)
+    if hi - lo < (1 << 21):
+        block = np.where(np.indices((h, w)).sum(0) % 2 == 0, hi, lo)
+        area = np.where(np.indices((ah, aw)).sum(0) % 2 == 0, lo, hi)
+    else:
+        block = rng.choice([lo, hi, 0, -1, 1], (h, w))
+        area = rng.choice([lo, hi, 0, -1, 1], (ah, aw))
+    block, area = block.astype(np.int32), area.astype(np.int32)
+    got = _k9_integer_route(block, area)
+    d = (np.lib.stride_tricks.sliding_window_view(
+        area.astype(np.int64), (h, w)) - block.astype(np.int64))
+    with np.errstate(over="ignore"):
+        want = (d * d).sum(axis=(2, 3))        # int64, wrapping
+    np.testing.assert_array_equal(got, want)
+    ref = M.full_search_sse_batch_ref(torch.from_numpy(block[None]),
+                                      torch.from_numpy(area[None]), h, w)
+    np.testing.assert_array_equal(got.astype(np.float32), ref[0].numpy())

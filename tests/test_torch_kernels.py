@@ -657,3 +657,184 @@ def test_mode_costs_integer_route_wraps_as_int32(cuda):
         args = [torch.from_numpy(a).to(cuda) for a in (src, rm, tops, lefts)]
         got = IB.mode_costs_batch(*args, s, s, 30)
         assert torch.equal(got, IB.mode_costs_batch_ref(*args, s, s, 30))
+
+
+# ---------------------------------------------------------------------------
+# K9 full_search_sse: the float32 route (sample ranges within 1023) and the
+# integer route, patches, groups of blocks, ties
+# ---------------------------------------------------------------------------
+
+def _search_case(rng, B, h, w, ah, aw, bd, kind="random"):
+    """(blocks [B, h, w], areas [B, ah, aw]) int32 at bit depth bd."""
+    top = (1 << bd) - 1
+    if kind == "flat":
+        return (np.full((B, h, w), top // 3, np.int32),
+                np.full((B, ah, aw), top // 3, np.int32))
+    if kind == "checker":
+        blk = np.where(np.indices((h, w)).sum(0) % 2 == 0, top, 0)
+        area = np.where(np.indices((ah, aw)).sum(0) % 2 == 0, 0, top)
+        return (np.broadcast_to(blk, (B, h, w)).astype(np.int32).copy(),
+                np.broadcast_to(area, (B, ah, aw)).astype(np.int32).copy())
+    return (rng.randint(0, top + 1, (B, h, w)).astype(np.int32),
+            rng.randint(0, top + 1, (B, ah, aw)).astype(np.int32))
+
+
+def _check_search(cuda, blocks, areas, h, w):
+    from vvenc_tpu_torch.ops import me as M
+    b, a = (torch.from_numpy(x).to(cuda) for x in (blocks, areas))
+    c0 = kernels.launches["full_search_sse"]
+    got = M.full_search_sse_batch(b, a, h, w)
+    want = M.full_search_sse_batch_ref(b, a, h, w)
+    torch.cuda.synchronize()
+    assert kernels.launches["full_search_sse"] == c0 + 1
+    assert torch.equal(got, want)
+    my, mx, cost = M.best_mv_batch(b, a, h, w)
+    idx = want.flatten(1).argmin(dim=1)
+    gw = want.shape[2]
+    assert torch.equal(my * gw + mx, idx)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [0, 1, 16, 64])
+@pytest.mark.parametrize("s", [4, 8, 16, 32, 64])
+def test_full_search_sizes_ranges_and_groups(cuda, s, R):
+    """K9 equal to full_search_sse_batch_ref (costs and argmins) on 10-bit
+    data for square blocks 4..64 and R 0, 1, 16, 64, with one block and
+    with a batch that does not fill the last thread block's group."""
+    rng = np.random.RandomState(s * 7 + R)
+    for B in (1, 37):
+        _check_search(cuda, *_search_case(rng, B, s, s, s + 2 * R,
+                                          s + 2 * R, 10), s, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,ah,aw", [
+    (8, 16, 14, 56), (16, 4, 48, 14), (4, 12, 21, 40), (32, 8, 40, 72),
+    (6, 10, 20, 17), (16, 16, 48, 80), (64, 32, 80, 64)])
+def test_full_search_rectangular_blocks_and_areas(cuda, h, w, ah, aw):
+    """Rectangular blocks and areas (ah != aw, odd grids), at 8 and 10
+    bits; 6x10 (w not a multiple of 4) takes the integer route."""
+    rng = np.random.RandomState(h * 31 + w + ah + aw)
+    for bd in (8, 10):
+        _check_search(cuda, *_search_case(rng, 23, h, w, ah, aw, bd), h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,R", [(4, 4), (8, 8), (16, 16), (64, 16)])
+def test_full_search_flat_planes_tie_to_the_lowest_index(cuda, s, R):
+    """Flat block and area: every displacement ties at 0 and the lowest
+    index wins."""
+    from vvenc_tpu_torch.ops import me as M
+    blocks, areas = _search_case(None, 9, s, s, s + 2 * R, s + 2 * R, 10,
+                                 "flat")
+    got = _check_search(cuda, blocks, areas, s, s)
+    assert float(got.abs().max()) == 0.0
+    b, a = (torch.from_numpy(x).to(cuda) for x in (blocks, areas))
+    my, mx, _ = M.best_mv_batch(b, a, s, s)
+    assert int(my.abs().sum()) == 0 and int(mx.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10, 12, 16])
+@pytest.mark.parametrize("s,R", [(8, 8), (16, 16), (64, 16)])
+def test_full_search_checkerboards_at_both_routes(cuda, s, R, bd):
+    """0 / max checkerboards (every SSE at its largest: 64x64 at 10 bits
+    is 4096 * 1023^2, just below 2^32): 8 and 10 bits take the float
+    route, 12 and 16 the integer one; a batch mixing 10-bit blocks with
+    one 12-bit block sends its thread block to the integer route."""
+    blocks, areas = _search_case(None, 11, s, s, s + 2 * R, s + 2 * R, bd,
+                                 "checker")
+    _check_search(cuda, blocks, areas, s, s)
+    if bd == 12:
+        rng = np.random.RandomState(s + R)
+        b10, a10 = _search_case(rng, 11, s, s, s + 2 * R, s + 2 * R, 10)
+        b10[5], a10[5] = blocks[5], areas[5]
+        _check_search(cuda, b10, a10, s, s)
+
+
+@pytest.mark.cuda
+def test_full_search_largest_area_that_fits(cuda):
+    """The largest area a 16x16 block takes (block and area within the
+    232,448 bytes of shared memory a thread block can use: 241 x 240) is
+    searched exactly; one row more is refused."""
+    from vvenc_tpu_torch.ops import me as M
+    rng = np.random.RandomState(3)
+    _check_search(cuda, *_search_case(rng, 2, 16, 16, 241, 240, 10), 16, 16)
+    b, a = (torch.from_numpy(x).to(cuda) for x in
+            _search_case(rng, 2, 16, 16, 242, 240, 10))
+    with pytest.raises(RuntimeError):
+        M.full_search_sse_batch(b, a, 16, 16)
+
+
+# ---------------------------------------------------------------------------
+# K6 transform_batch: every (w, h) pair, the tensor-core stages, the
+# integer route, groups and alignment
+# ---------------------------------------------------------------------------
+
+ALL_TR_PAIRS = [(w, h) for w in (4, 8, 16, 32, 64) for h in (4, 8, 16, 32, 64)]
+
+
+def _tr_check(cuda, T, x, w, h, bd):
+    """fwd and inv of x [B, h, w] (numpy int32) against the plain
+    versions; inv also on the forward output and on clipped extremes."""
+    t = torch.from_numpy(x).to(cuda)
+    n = dict(kernels.launches)
+    ck = T.fwd_transform_batch(t, w, h, bd)
+    assert torch.equal(ck, T.fwd_transform_batch_ref(t, w, h, bd))
+    assert torch.equal(T.inv_transform_batch(t, w, h, bd),
+                       T.inv_transform_batch_ref(t, w, h, bd))
+    assert torch.equal(T.inv_transform_batch(ck, w, h, bd),
+                       T.inv_transform_batch_ref(ck, w, h, bd))
+    torch.cuda.synchronize()
+    assert kernels.launches["fwd_transform_batch"] == \
+        n["fwd_transform_batch"] + 1
+    assert kernels.launches["inv_transform_batch"] == \
+        n["inv_transform_batch"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10, 12, 16])
+@pytest.mark.parametrize("w,h", ALL_TR_PAIRS)
+def test_transform_all_pairs_bit_depths_and_groups(cuda, w, h, bd):
+    """K6 bit-exact on all 25 (w, h) pairs at 8, 10, 12 and 16 bits:
+    residuals at +-(2^bd - 1) (16 bits: past 2^15, the integer route),
+    coefficients at -2^15 and 2^15 - 1, one block and a batch that is not
+    a multiple of the group."""
+    from vvenc_tpu_torch.ops import transforms as T
+    rng = np.random.RandomState(w * 100 + h + bd)
+    top = (1 << bd) - 1
+    for B in (1, 2048 // (w * h) + 3 if w * h < 2048 else 3):
+        x = rng.randint(-top, top + 1, (B, h, w)).astype(np.int32)
+        x[0, 0, :] = top
+        x[-1, -1, :] = -top
+        _tr_check(cuda, T, x, w, h, bd)
+        c = rng.choice([-(1 << 15), (1 << 15) - 1], (B, h, w))
+        _tr_check(cuda, T, c.astype(np.int32), w, h, bd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", ALL_TR_PAIRS)
+def test_transform_integer_route_wraps_as_int32(cuda, w, h):
+    """Inputs of +-2^15 and far beyond (+-2^20, +-2^30: the reference's
+    int32 sums wrap) send their group to the integer route, which wraps
+    as the reference does; the other groups of the batch stay on the
+    tensor cores.  A tensor 4 bytes off 16-byte alignment takes the
+    4-byte copies."""
+    from vvenc_tpu_torch.ops import transforms as T
+    rng = np.random.RandomState(w * 7 + h)
+    G = max(1, 2048 // (w * h))
+    B = 3 * G + 1
+    x = rng.randint(-1023, 1024, (B, h, w)).astype(np.int32)
+    x[G] = rng.choice([-(1 << 15), 1 << 15, -(1 << 20), 1 << 30], (h, w))
+    x[2 * G + G // 2, 0, 0] = -(1 << 15) - 1
+    _tr_check(cuda, T, x, w, h, 10)
+    t = torch.from_numpy(x).to(cuda)
+    buf = torch.empty(t.numel() + 1, dtype=torch.int32, device=cuda)
+    off = buf[1:].view(B, h, w)
+    off.copy_(t)
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(T.fwd_transform_batch(off, w, h, 10),
+                       T.fwd_transform_batch_ref(t, w, h, 10))
+    assert torch.equal(T.inv_transform_batch(off, w, h, 10),
+                       T.inv_transform_batch_ref(t, w, h, 10))

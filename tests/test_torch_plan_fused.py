@@ -125,12 +125,14 @@ def test_library_tag_covers_the_shared_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     monkeypatch.setattr(kernels, "CSRC", csrc)
-    before = {n: kernels.so_path(n) for n in kernels.SOURCES}
-    assert sorted(p.name for p in csrc.glob("*.cuh")) == ["intra_pred.cuh"]
-    with open(csrc / "intra_pred.cuh", "a") as f:
-        f.write("// edited\n")
-    after = {n: kernels.so_path(n) for n in kernels.SOURCES}
-    assert all(after[n] != before[n] for n in kernels.SOURCES)
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == [
+        "intra_pred.cuh", "mma_split.cuh"]
+    for header in ("intra_pred.cuh", "mma_split.cuh"):
+        before = {n: kernels.so_path(n) for n in kernels.SOURCES}
+        with open(csrc / header, "a") as f:
+            f.write("// edited\n")
+        after = {n: kernels.so_path(n) for n in kernels.SOURCES}
+        assert all(after[n] != before[n] for n in kernels.SOURCES), header
     with open(csrc / "satd_modes.cu", "a") as f:
         f.write("// edited\n")
     again = {n: kernels.so_path(n) for n in kernels.SOURCES}

@@ -66,8 +66,12 @@
 #include <stdint.h>
 
 #include "intra_pred.cuh"
+#include "mma_split.cuh"
 
 namespace {
+
+using mma_split::put_split;
+using mma_split::tile_product;
 
 constexpr int kModes = 67;
 constexpr int kCoeffMin = -(1 << 15), kCoeffMax = (1 << 15) - 1;
@@ -186,31 +190,6 @@ __device__ __forceinline__ float trial_cost(const TrialParams& p,
 // 16x16 .. 64x64 on the tensor cores
 // ---------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_ss(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_us(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_su(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
@@ -226,71 +205,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// byte planes of S rows, the contraction index contiguous, KP bytes of it
-// (S, or 32 zero-padded at 16) in a row of RW words, RW = 4 (mod 8): a
-// fragment's 8 rows x 4 words fall on 32 distinct banks
+// byte planes of S rows (mma_split.cuh: KP bytes of contraction, S or 32
+// zero-padded at 16, in a row of RW words)
 template <int S>
 struct TcGeom {
-  static constexpr int KP = S < 32 ? 32 : S;
-  static constexpr int RW = KP / 4 + 4;
+  static constexpr int KP = mma_split::Plane<S>::KP;
+  static constexpr int RW = mma_split::Plane<S>::RW;
   static constexpr int PLANE = S * RW;            // words
   static constexpr int THREADS = S == 16 ? 64 : 256;
   static constexpr int NT = S / 8;                // n tiles (8 wide)
   static constexpr int TILES = (S / 16) * NT;     // m tiles (16 high) x n
 };
-
-// the m16n8 tile (m0, n0) of A * B^T over the contraction: A and B are
-// byte planes ([m][k], [n][k]); the data operand (hi s8, lo u8) is A
-// (DATA_A) or B, the matrix operand s8.  Returns 256 * hi + lo in c.
-template <int S, bool DATA_A>
-__device__ __forceinline__ void tile_product(const uint32_t* A_hi,
-                                             const uint32_t* A_lo,
-                                             const uint32_t* B_hi,
-                                             const uint32_t* B_lo, int m0,
-                                             int n0, int* c) {
-  using G = TcGeom<S>;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  int hi[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int kb = 0; kb < G::KP / 32; ++kb) {
-    const int ra = (m0 + g) * G::RW + kb * 8 + t;
-    const int rb = (n0 + g) * G::RW + kb * 8 + t;
-    uint32_t ah[4], bh[2];
-    ah[0] = A_hi[ra];
-    ah[1] = A_hi[ra + 8 * G::RW];
-    ah[2] = A_hi[ra + 4];
-    ah[3] = A_hi[ra + 8 * G::RW + 4];
-    bh[0] = B_hi[rb];
-    bh[1] = B_hi[rb + 4];
-    if (DATA_A) {
-      uint32_t al[4];
-      al[0] = A_lo[ra];
-      al[1] = A_lo[ra + 8 * G::RW];
-      al[2] = A_lo[ra + 4];
-      al[3] = A_lo[ra + 8 * G::RW + 4];
-      mma_ss(hi, ah, bh);
-      mma_us(lo, al, bh);
-    } else {
-      uint32_t bl[2];
-      bl[0] = B_lo[rb];
-      bl[1] = B_lo[rb + 4];
-      mma_ss(hi, ah, bh);
-      mma_su(lo, ah, bl);
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] = hi[e] * 256 + lo[e];
-}
-
-// store x (in [-2^15, 2^15)) at (row r, contraction index kk) of a split
-// byte plane pair
-template <int S>
-__device__ __forceinline__ void put_split(uint32_t* hi, uint32_t* lo, int r,
-                                          int kk, int x) {
-  const int o = r * TcGeom<S>::RW * 4 + kk;
-  reinterpret_cast<int8_t*>(hi)[o] = (int8_t)(x >> 8);
-  reinterpret_cast<uint8_t*>(lo)[o] = (uint8_t)(x & 255);
-}
 
 template <int S, bool REFS>
 __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
@@ -374,18 +299,18 @@ __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
     // the residual, split, as A of the row product: [y][x]
     for (int j = tid; j < S * S; j += G::THREADS) {
       const int y = j / S, x = j - y * S;
-      put_split<S>(x_hi, x_lo, y, x, s_src[j] - (int)pred[j]);
+      put_split<G::RW>(x_hi, x_lo, y, x, s_src[j] - (int)pred[j]);
     }
     __syncthreads();
     // forward rows: a[y][u] = sum_x r[y][x] tw[u][x] -> y planes [u][y]
     for (int tt = warp; tt < G::TILES; tt += NW) {
       const int m0 = (tt / G::NT) * 16, n0 = (tt % G::NT) * 8;
       int c[4];
-      tile_product<S, true>(x_hi, x_lo, m_tw, nullptr, m0, n0, c);
+      tile_product<G::KP, G::RW, true>(x_hi, x_lo, m_tw, nullptr, m0, n0, c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int y = m0 + g + 8 * (e >> 1), u = n0 + 2 * t4 + (e & 1);
-        put_split<S>(y_hi, y_lo, u, y,
+        put_split<G::RW>(y_hi, y_lo, u, y,
                      clampi(round_shift(c[e], p.shift1), kCoeffMin, kCoeffMax));
       }
     }
@@ -398,7 +323,9 @@ __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
       const int m0 = (tt / G::NT) * 16, n0 = (tt % G::NT) * 8;
       int c[4] = {0, 0, 0, 0};
       const bool kept = !zero_out || (m0 < 32 && n0 < 32);
-      if (kept) tile_product<S, false>(m_th, nullptr, y_hi, y_lo, m0, n0, c);
+      if (kept)
+        tile_product<G::KP, G::RW, false>(m_th, nullptr, y_hi, y_lo, m0, n0,
+                                          c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int v = m0 + g + 8 * (e >> 1), u = n0 + 2 * t4 + (e & 1);
@@ -408,7 +335,7 @@ __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
               clampi(round_shift(c[e], p.shift2), kCoeffMin, kCoeffMax);
           d = quant_dequant(p, cf, nnz, slog);
         }
-        put_split<S>(x_hi, x_lo, u, v, d);
+        put_split<G::RW>(x_hi, x_lo, u, v, d);
       }
     }
     __syncthreads();
@@ -416,11 +343,11 @@ __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
     for (int tt = warp; tt < G::TILES; tt += NW) {
       const int m0 = (tt / G::NT) * 16, n0 = (tt % G::NT) * 8;
       int c[4];
-      tile_product<S, false>(m_thT, nullptr, x_hi, x_lo, m0, n0, c);
+      tile_product<G::KP, G::RW, false>(m_thT, nullptr, x_hi, x_lo, m0, n0, c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int y = m0 + g + 8 * (e >> 1), u = n0 + 2 * t4 + (e & 1);
-        put_split<S>(y_hi, y_lo, y, u,
+        put_split<G::RW>(y_hi, y_lo, y, u,
                      clampi(round_shift(c[e], 7), kCoeffMin, kCoeffMax));
       }
     }
@@ -430,7 +357,7 @@ __global__ void __launch_bounds__(TcGeom<S>::THREADS) plan_trial_tc_kernel(
     for (int tt = warp; tt < G::TILES; tt += NW) {
       const int m0 = (tt / G::NT) * 16, n0 = (tt % G::NT) * 8;
       int c[4];
-      tile_product<S, true>(y_hi, y_lo, m_twT, nullptr, m0, n0, c);
+      tile_product<G::KP, G::RW, true>(y_hi, y_lo, m_twT, nullptr, m0, n0, c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int y = m0 + g + 8 * (e >> 1), x = n0 + 2 * t4 + (e & 1);

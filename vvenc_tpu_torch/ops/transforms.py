@@ -591,6 +591,8 @@ def dequant_batch_ref(qcoeff: torch.Tensor, w: int, h: int, qp: int,
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_K6_FWD_ARGS = [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P]
+_K6_INV_ARGS = [_P, _P, _L, _I, _I, _I, _P, _P, _P]
 
 
 def _require_blocks(x: torch.Tensor, w: int, h: int, name: str):
@@ -607,6 +609,47 @@ def _require_blocks(x: torch.Tensor, w: int, h: int, name: str):
     return dev
 
 
+def k6_launch(x: torch.Tensor, out: torch.Tensor, w: int, h: int,
+              bit_depth: int, inverse: bool) -> tuple:
+    """(C symbol, argument types, arguments) of K6's forward (or inverse)
+    entry on x [B, h, w] into out, as fwd/inv_transform_batch launch it;
+    raises if the bit depth gives a shift below 1."""
+    from .tables import device_tables
+    if inverse:
+        shift2 = 20 - bit_depth
+        if shift2 < 1:
+            raise ValueError(f"inv_transform_batch: bit depth {bit_depth}")
+        t = device_tables(w, h, x.device)
+        return ("vt_inv_transform_batch", _K6_INV_ARGS,
+                (x.data_ptr(), out.data_ptr(), x.shape[0], w, h, shift2,
+                 t["tr"][(h, DCT2)].data_ptr(), t["tr"][(w, DCT2)].data_ptr(),
+                 kernels.stream_ptr(out)))
+    shift1 = (w.bit_length() - 1) + bit_depth + 6 - MAX_LOG2_TR_DYN_RANGE
+    shift2 = (h.bit_length() - 1) + 6
+    if shift1 < 1:
+        raise ValueError(f"fwd_transform_batch: bit depth {bit_depth} "
+                         f"gives a first-stage shift of {shift1}")
+    t = device_tables(w, h, x.device)
+    return ("vt_fwd_transform_batch", _K6_FWD_ARGS,
+            (x.data_ptr(), out.data_ptr(), x.shape[0], w, h, shift1, shift2,
+             t["trT"][(w, DCT2)].data_ptr(), t["tr"][(h, DCT2)].data_ptr(),
+             kernels.stream_ptr(out)))
+
+
+def _k6(x: torch.Tensor, w: int, h: int, bit_depth: int,
+        inverse: bool) -> torch.Tensor:
+    name = "inv_transform_batch" if inverse else "fwd_transform_batch"
+    _require_blocks(x, w, h, name)
+    out = torch.empty_like(x)
+    symbol, argtypes, args = k6_launch(x, out, w, h, bit_depth, inverse)
+    if x.shape[0] == 0:
+        return out
+    fn = kernels.function("transform_batch", symbol, argtypes)
+    kernels.check("transform_batch", fn(*args))
+    kernels.count(name)
+    return out
+
+
 def fwd_transform_batch(resi: torch.Tensor, w: int, h: int,
                         bit_depth: int = 10) -> torch.Tensor:
     """Forward DCT-2 of a batch of blocks [B, h, w] int32 -> [B, h, w]
@@ -614,25 +657,7 @@ def fwd_transform_batch(resi: torch.Tensor, w: int, h: int,
     K6 on a CUDA device, the plain version on the CPU."""
     if resi.device.type == "cpu":
         return fwd_transform_batch_ref(resi, w, h, bit_depth)
-    dev = _require_blocks(resi, w, h, "fwd_transform_batch")
-    shift1 = (w.bit_length() - 1) + bit_depth + 6 - MAX_LOG2_TR_DYN_RANGE
-    shift2 = (h.bit_length() - 1) + 6
-    if shift1 < 1:
-        raise ValueError(f"fwd_transform_batch: bit depth {bit_depth} "
-                         f"gives a first-stage shift of {shift1}")
-    out = torch.empty_like(resi)
-    if resi.shape[0] == 0:
-        return out
-    from .tables import device_tables
-    t = device_tables(w, h, dev)
-    twT, th = t["trT"][(w, DCT2)], t["tr"][(h, DCT2)]
-    fn = kernels.function("transform_batch", "vt_fwd_transform_batch",
-                          [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P])
-    err = fn(resi.data_ptr(), out.data_ptr(), resi.shape[0], w, h, shift1,
-             shift2, twT.data_ptr(), th.data_ptr(), kernels.stream_ptr(out))
-    kernels.check("transform_batch", err)
-    kernels.count("fwd_transform_batch")
-    return out
+    return _k6(resi, w, h, bit_depth, False)
 
 
 def inv_transform_batch(coeff: torch.Tensor, w: int, h: int,
@@ -641,23 +666,7 @@ def inv_transform_batch(coeff: torch.Tensor, w: int, h: int,
     int32.  K6 on a CUDA device, the plain version on the CPU."""
     if coeff.device.type == "cpu":
         return inv_transform_batch_ref(coeff, w, h, bit_depth)
-    dev = _require_blocks(coeff, w, h, "inv_transform_batch")
-    shift2 = 20 - bit_depth
-    if shift2 < 1:
-        raise ValueError(f"inv_transform_batch: bit depth {bit_depth}")
-    out = torch.empty_like(coeff)
-    if coeff.shape[0] == 0:
-        return out
-    from .tables import device_tables
-    t = device_tables(w, h, dev)
-    tw, th = t["tr"][(w, DCT2)], t["tr"][(h, DCT2)]
-    fn = kernels.function("transform_batch", "vt_inv_transform_batch",
-                          [_P, _P, _L, _I, _I, _I, _P, _P, _P])
-    err = fn(coeff.data_ptr(), out.data_ptr(), coeff.shape[0], w, h, shift2,
-             th.data_ptr(), tw.data_ptr(), kernels.stream_ptr(out))
-    kernels.check("transform_batch", err)
-    kernels.count("inv_transform_batch")
-    return out
+    return _k6(coeff, w, h, bit_depth, True)
 
 
 def quant_batch(coeff: torch.Tensor, w: int, h: int, qp: int,
