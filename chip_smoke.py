@@ -38,12 +38,17 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
    - K4's gathered entry (presel_costs, the reference's inputs) on the
      same picture and classes: bit-exact against the plain version and
      equal to the plane form; timed per class.
-   - K1 and K2 bit-exact and timed at search_step's shape (the 4 16x16
-     blocks of one position of dryrun_multichip(4)).
+   - K1 and K2 bit-exact against their plain versions (10-bit) and timed
+     (the public call, CUDA events; the kernel's device time of one
+     call, profiler) at search_step's shape (the 4 16x16 blocks of one
+     position of dryrun_multichip(4); 2000 calls), on the QT grid of
+     every square class 4..64, 8x4 and 16x8 of a 1920x1080 picture, and
+     on each class of config 1's plan batch.
    - K5 (frame_me) on two 1920x1080 and two 832x480 pictures at R = 64,
      8 and 10 bits: MVs and costs equal; timed at 10 bits.
    - The resources of K5's kernel, of K11's per block size, of K6's
-     (both entries) per class and of K9's at its three timed shapes.
+     (both entries) per class, of K9's at its three timed shapes and of
+     K1's and K2's per class.
    - K6 (fwd/inv_transform_batch) and K7 (quant/dequant_batch) bit-exact
      on the residuals of 1920x1080 pictures (source minus search_step's
      chosen prediction) for every square class 4..64 plus 8x4 and 16x8,
@@ -103,15 +108,17 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      graft_entry.dryrun_multichip(4), where search_step launches K1, K2,
      K6 and K7.
    With --old-csrc DIR (an older checkout's vvenc_tpu_torch/csrc, for
-   example the parent commit's, unpacked), phase 3 also builds that K5,
-   K6, K9 and K11 and sets them against the current ones, called alike:
-   outputs equal at every K5, K11 and K9 shape above (K9 also on its
-   integer route: a 12-bit checkerboard at 16x16 R = 16 and 6x6 blocks
-   at R = 8) and every K6 class and search_step's shape, times taken in
-   turns (old, new, new, old; 2000 calls a turn for K6 at search_step's
-   shape), the old kernels' resources.  K6's and K9's bounds count the
-   work as each kernel computes it (tr_bound_ms, fs_bound_ms), their
-   int32 count beside as the yardstick.
+   example the parent commit's, unpacked), phase 3 also builds that K1,
+   K2, K5, K6, K9 and K11 and sets them against the current ones,
+   called alike: outputs equal at every K5, K11 and K9 shape above (K9
+   also on its integer route: a 12-bit checkerboard at 16x16 R = 16 and
+   6x6 blocks at R = 8), every K6 class and search_step's shape, and
+   every K1 / K2 shape above, times taken in turns (old, new, new, old;
+   2000 calls a turn for K1, K2 and K6 at search_step's shape, three
+   rounds of turns averaged for K1 and K2), the old kernels' resources.
+   K6's and K9's bounds count the work as each kernel computes it
+   (tr_bound_ms, fs_bound_ms), their int32 count beside as the
+   yardstick.
 5. Prints a {"kernels": [...]} line, then the card line, then the last
    line {"ok": true, "device": {...}}.
 
@@ -322,19 +329,25 @@ def work(name: str, B: int, s: int, k: int) -> tuple:
         nb, ops = work("plan_trial", B, s, k)
         return (nb - B * k * n * 2 + B * 2 * (2 * s + 3) * 4,
                 ops + B * k * n * 11)
-    if name == "intra_pred_all":
-        # reads tops + lefts, writes the 67 predictions; 4 multiply-adds,
-        # a round, a shift and a clip per sample
-        return B * (2 * (2 * s + 3) * 4 + M * n * 2), B * M * n * 11
-    if name == "satd_modes":
-        # reads the source and the predictions, writes [B, 67]; per 8x8
-        # tile 2*3*64 butterfly adds, a subtraction, an abs and a sum per
-        # sample
-        return B * (n * 4 + M * n * 2 + M * 4), B * M * n * 9
+    if name in ("intra_pred_all", "satd_modes"):
+        return k12_work(name, B, s, s)
     # plan_trial: reads satd, lambdas, the source and the k survivors'
     # predictions, writes modes + costs; four s^3 products per survivor
     return (B * (M * 4 + 8 + n * 4 + k * n * 2 + k * 8),
             B * k * (4 * s * n * 2 + 20 * n))
+
+
+def k12_work(name: str, B: int, w: int, h: int) -> tuple:
+    """(bytes, int32 operations) of K1 or K2 on B blocks of w x h.  K1
+    reads tops + lefts (LPAD = 2 max(w, h) + 3 each) and writes the 67
+    predictions: 4 multiply-adds, a round, a shift and a clip a sample.
+    K2 reads the source and the 67 predictions and writes [B, 67]: per
+    8x8 tile 2*3*64 butterfly adds, a subtraction, an abs and a sum a
+    sample."""
+    M, n = 67, w * h
+    if name == "intra_pred_all":
+        return B * (2 * (2 * max(w, h) + 3) * 4 + M * n * 2), B * M * n * 11
+    return B * (n * 4 + M * n * 2 + M * 4), B * M * n * 9
 
 
 def plan_bound_ms(B: int, s: int, k: int,
@@ -826,32 +839,65 @@ def run_me(torch, dev, srcs, R, reps, plain_reps):
     return rec
 
 
-def run_search_step_shape(torch, dev, reps, plain_reps):
-    """K1 and K2 at the shape search_step launches them with in
-    graft_entry.dryrun_multichip(4): the 4 16x16 blocks of one mesh
-    position (graft_entry's example inputs), bit-exact against their plain
-    versions and timed with them.  Returns {entry: record}."""
+def k12_cases(torch, dev, pic) -> dict:
+    """K1's and K2's inputs at their timed shapes: {tag: (w, h, blocks,
+    tops, lefts)} for search_step's (the 4 16x16 blocks of one position of
+    dryrun_multichip(4), graft_entry's example inputs), the QT grid of
+    every class of TR_CLASSES on the 1080p 10-bit picture pic, and each
+    class of config 1's plan batch (10 frames of 416x240, 10-bit)."""
     from vvenc_tpu_torch import graft_entry
-    from vvenc_tpu_torch.ops import intra_presel as S
+    from vvenc_tpu_torch.encoder.intra_encoder import EncoderConfig
+    from vvenc_tpu_torch.ops import intra_plan as P
     B, s = SEARCH_STEP_BLOCKS, 16
-    src, tops, lefts = (torch.from_numpy(a).to(dev) for a in
-                        graft_entry._example_inputs(B, s, s, seed=4))
-    preds = S.predict_all_modes(tops, lefts, s, s, 10)
-    if not torch.equal(preds, S.predict_all_modes_ref(tops, lefts, s, s,
-                                                      10)):
-        fail("K1 intra_pred_all != plain at search_step's shape")
-    if not torch.equal(S.satd_batch(src, preds, s, s),
-                       S.satd_batch_ref(src, preds, s, s)):
-        fail("K2 satd_modes != plain at search_step's shape")
-    calls = {"intra_pred_all": (
-        lambda: S.predict_all_modes(tops, lefts, s, s, 10),
-        lambda: S.predict_all_modes_ref(tops, lefts, s, s, 10)),
-        "satd_modes": (lambda: S.satd_batch(src, preds, s, s),
-                       lambda: S.satd_batch_ref(src, preds, s, s))}
-    return {n: {"B": B, "s": s, "work": work(n, B, s, 0),
-                "ms": cuda_ms(torch, kern, reps),
-                "plain_ms": cuda_ms(torch, plain, plain_reps)}
+    out = {"search_step 16x16": (s, s) + tuple(
+        torch.from_numpy(a).to(dev)
+        for a in graft_entry._example_inputs(B, s, s, seed=4))}
+    H, W = pic.shape
+    plane = padded_plane(torch, dev, pic)
+    for (w, h) in TR_CLASSES:
+        out[f"1080p {w}x{h}"] = (w, h) + grid_inputs(plane, W, H, w, h)
+    cw, ch = 416, 240
+    planes = torch.from_numpy(np.stack(
+        [np.pad(f, P.PAD, mode="edge") for f in
+         luma_frames(cw, ch, 10, 10, seed=1)]).astype(np.int16)).to(dev)
+    for c in P._plan_sizes(cw, ch, 64, EncoderConfig.min_qt):
+        out[f"config1 batch {c}x{c}"] = (c, c) + P._class_inputs(
+            planes, c, cw, ch)
+    return out
+
+
+def run_k12(torch, dev, cases, reps, plain_reps):
+    """K1 and K2 on every case of k12_cases, bit-exact against their
+    plain versions at 10 bits; each timed: the public function (CUDA
+    events, "ms"; 2000 calls at search_step's shape, where
+    dryrun_multichip(4) launches them), the kernel's device time of one
+    call (profiler, "device_ms") and, at search_step's shape, the plain
+    version.  Returns {tag: {entry: record}}."""
+    from vvenc_tpu_torch.ops import intra_presel as S
+    out = {}
+    for tag, (w, h, blocks, tops, lefts) in cases.items():
+        B = blocks.shape[0]
+        preds = S.predict_all_modes(tops, lefts, w, h, 10)
+        if not torch.equal(preds, S.predict_all_modes_ref(tops, lefts, w, h,
+                                                          10)):
+            fail(f"K1 intra_pred_all != plain at {tag}")
+        if not torch.equal(S.satd_batch(blocks, preds, w, h),
+                           S.satd_batch_ref(blocks, preds, w, h)):
+            fail(f"K2 satd_modes != plain at {tag}")
+        calls = {"intra_pred_all": (
+            lambda: S.predict_all_modes(tops, lefts, w, h, 10),
+            lambda: S.predict_all_modes_ref(tops, lefts, w, h, 10)),
+            "satd_modes": (lambda: S.satd_batch(blocks, preds, w, h),
+                           lambda: S.satd_batch_ref(blocks, preds, w, h))}
+        ss = tag.startswith("search_step")
+        out[tag] = {n: {
+            "B": B, "w": w, "h": h, "work": k12_work(n, B, w, h),
+            "ms": cuda_ms(torch, kern, 2000 if ss else reps),
+            "device_ms": call_device_ms(torch, kern, 20),
+            "plain_ms": cuda_ms(torch, plain, plain_reps) if ss else None}
             for n, (kern, plain) in calls.items()}
+        del preds
+    return out
 
 
 def padded_plane(torch, dev, pic):
@@ -1602,7 +1648,8 @@ def encode(torch, tag, clip, w, h, frames, qp, preset, extra, plan=False):
 
 # the redesigned kernels that --old-csrc sets against an older build
 # (their C entries kept their signatures)
-OLD_SOURCES = ("frame_me", "mode_costs", "transform_batch", "full_search")
+OLD_SOURCES = ("frame_me", "mode_costs", "transform_batch", "full_search",
+               "intra_pred_all", "satd_modes")
 
 
 def build_old(csrc: str) -> dict:
@@ -1661,6 +1708,12 @@ def old_resources(lib, symbol: str, *args) -> dict:
 
 def dev_str(v) -> str:
     return "not measured" if v is None else f"{v:.4f}"
+
+
+def dev_sum(vs):
+    """The sum of device times, None when one of them was not measured."""
+    vs = list(vs)
+    return None if None in vs else sum(vs)
 
 
 def call_device_ms(torch, fn, reps: int):
@@ -1873,10 +1926,80 @@ def old_new_phase(torch, dev, libs, me_cases, mi10, k6_cases, fs_cases,
         rec["resources"][f"mode_costs {s}x{s}"] = old_resources(
             mc_lib, "vt_mode_costs_attrs", s)
     for label, src, symbol, args in resource_rows():
-        lib = {"transform_batch": tr_lib, "full_search": fs_lib}.get(src)
-        # an older build may lack the K6 / K9 resource queries
+        lib = libs[src][0] if src in libs else None
+        # an older build may lack the K1 / K2 / K6 / K9 resource queries
         if lib is not None and hasattr(lib, symbol):
             rec["resources"][label] = old_resources(lib, symbol, *args)
+    return rec
+
+
+def old_new_k12(torch, dev, libs, cases, reps) -> dict:
+    """K1 and K2 against the older build `libs` (build_old) on every case
+    of k12_cases: outputs equal; both called alike (one ctypes call into
+    each library with the wrapper's arguments) and timed in turns, old,
+    new, new, old (at search_step's shape three rounds of turns of 2000
+    calls, averaged), then the device time of one call alone and the
+    public function's time.
+    Returns {entry: {tag: record}}."""
+    from vvenc_tpu_torch.ops import intra_presel as S
+    from vvenc_tpu_torch.ops import kernels
+    from vvenc_tpu_torch.ops.tables import device_tables
+    fns = {n: (kernels.function(n, f"vt_{n}", a),
+               old_function(libs[n][0], f"vt_{n}", a))
+           for n, a in (("intra_pred_all", S._K1_ARGS),
+                        ("satd_modes", S._K2_ARGS))}
+    rec = {n: {} for n in fns}
+    for tag, (w, h, blocks, tops, lefts) in cases.items():
+        B = blocks.shape[0]
+        t = device_tables(w, h, dev)
+        preds = {v: torch.empty((B, 67, h, w), dtype=torch.int16, device=dev)
+                 for v in ("old", "new")}
+        costs = {v: torch.empty((B, 67), dtype=torch.int32, device=dev)
+                 for v in ("old", "new")}
+        # the wrappers' arguments (ops/intra_presel.predict_all_modes,
+        # satd_batch); K2 reads the new kernel's predictions
+        args = {"intra_pred_all": lambda v: (
+            tops.data_ptr(), tops.shape[1], lefts.data_ptr(),
+            lefts.shape[1], preds[v].data_ptr(), B, w, h, 10,
+            t["rm_flat"].data_ptr(), t["row_start"].data_ptr(),
+            t["filt"].data_ptr(), t["mode_info"].data_ptr(),
+            t["pdpc_wl"].data_ptr(), t["side_flat"].data_ptr(), t["LPAD"],
+            t["LR"], t["TM"], t["B0"], kernels.stream_ptr(preds[v])),
+            "satd_modes": lambda v: (
+            blocks.data_ptr(), preds["new"].data_ptr(), costs[v].data_ptr(),
+            B * 67, 67, w, h, kernels.stream_ptr(costs[v]))}
+        public = {"intra_pred_all":
+                  lambda: S.predict_all_modes(tops, lefts, w, h, 10),
+                  "satd_modes":
+                  lambda: S.satd_batch(blocks, preds["new"], w, h)}
+        outs = {"intra_pred_all": preds, "satd_modes": costs}
+        turn = 2000 if tag.startswith("search_step") else reps
+        for n, (new_fn, old_fn) in fns.items():
+            def call(v, n=n, new_fn=new_fn, old_fn=old_fn):
+                if v == "old":
+                    old_fn(*args[n](v))
+                else:
+                    kernels.check(n, new_fn(*args[n](v)))
+            call("old")
+            call("new")
+            torch.cuda.synchronize()
+            if not torch.equal(outs[n]["old"], outs[n]["new"]):
+                fail(f"{n} ({tag}): the new kernel's output != the old "
+                     "kernel's")
+            # host-bound calls drift between turns: at search_step's
+            # shape three rounds of turns, averaged
+            rounds = [in_turns(torch, lambda: call("old"),
+                               lambda: call("new"), turn)
+                      for _ in range(3 if turn > reps else 1)]
+            o = sum(r[0] for r in rounds) / len(rounds)
+            nw = sum(r[1] for r in rounds) / len(rounds)
+            rec[n][tag] = {
+                "B": B, "w": w, "h": h, "old_ms": o, "ms": nw,
+                "public_ms": cuda_ms(torch, public[n], turn),
+                "old_device_ms": call_device_ms(torch, lambda: call("old"),
+                                                20),
+                "device_ms": call_device_ms(torch, lambda: call("new"), 20),
+                "bound_ms": bound_ms(*k12_work(n, B, w, h))[0]}
     return rec
 
 
@@ -1899,7 +2022,7 @@ def resource_rows() -> list:
     """(label, source, vt_*_attrs symbol, int arguments) of every kernel
     whose resources phase 3 prints: K3 (both entries) and K4 (both
     entries) per class, K5, K11 per block size, K6 (both entries) per
-    class, K9 at its timed shapes."""
+    class, K9 at its timed shapes, K1 and K2 per class of TR_CLASSES."""
     from vvenc_tpu_torch.ops import intra_presel as S
     from vvenc_tpu_torch.ops.tables import presel_mode_tables
     rows = [(f"{name} {s}x{s}", "plan_trial", f"vt_{name}_attrs", (s, s))
@@ -1921,6 +2044,9 @@ def resource_rows() -> list:
     # a shape the float route does not take (w not a multiple of 4)
     rows.append(("full_search 6x6 R=8", "full_search", "vt_full_search_attrs",
                  (6, 6, 22, 22)))
+    rows += [(f"{n} {w}x{h}", n, f"vt_{n}_attrs", (w, h))
+             for n in ("intra_pred_all", "satd_modes")
+             for (w, h) in TR_CLASSES]
     return rows
 
 
@@ -1932,10 +2058,10 @@ def resource_line(label: str, r: dict) -> str:
 
 
 def print_resources() -> dict:
-    """Prints and returns the resources of K3's, K4's, K5's, K6's, K9's
-    and K11's kernels (registers, shared memory, threads, resident blocks
-    per SM and local memory, from each source's vt_*_attrs query on this
-    card)."""
+    """Prints and returns the resources of K1's, K2's, K3's, K4's, K5's,
+    K6's, K9's and K11's kernels (registers, shared memory, threads,
+    resident blocks per SM and local memory, from each source's
+    vt_*_attrs query on this card)."""
     from vvenc_tpu_torch.ops import kernels
     out = {}
     for label, src, symbol, args in resource_rows():
@@ -2072,10 +2198,9 @@ def main(argv=None) -> int:
                     help="also write the detailed numbers to this file")
     ap.add_argument("--old-csrc", default=None,
                     help="a csrc/ directory of an older checkout: also "
-                         "build its K5, K6, K9 and K11 sources and set them "
-                         "against "
-                         "the current ones (outputs equal, times in turns, "
-                         "resources)")
+                         "build its K1, K2, K5, K6, K9 and K11 sources and "
+                         "set them against the current ones (outputs equal, "
+                         "times in turns, resources)")
     args = ap.parse_args(argv)
     json_path = args.json_path
     import torch
@@ -2126,15 +2251,28 @@ def main(argv=None) -> int:
         k3_k4_phase(torch, dev, report)
     W, H = 1920, 1080
 
-    # phase 3, K1 and K2 at the shape search_step launches them with
-    ss = run_search_step_shape(torch, dev, reps=200, plain_reps=20)
-    print(f"phase 3: K1 intra_pred_all and K2 satd_modes bit-exact at "
-          f"search_step's shape ({SEARCH_STEP_BLOCKS} blocks of 16x16, one "
-          f"position of dryrun_multichip(4)): " + ", ".join(
-              f"{n} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
-              f"{bound_ms(*r['work'])[0]:.5f})" for n, r in ss.items()),
-          flush=True)
-    report["search_step_shape"] = ss
+    # phase 3, K1 and K2: search_step's shape, the 1080p classes, config
+    # 1's plan batch
+    k12c = k12_cases(torch, dev, pic10)
+    k12 = run_k12(torch, dev, k12c, reps=20, plain_reps=20)
+    print("phase 3: K1 intra_pred_all and K2 satd_modes bit-exact against "
+          "their plain versions at search_step's shape, the 1080p classes "
+          "and config 1's plan batch (10-bit); the public call's ms (the "
+          "kernel's device time of one call; bound):", flush=True)
+    for tag, rr in k12.items():
+        print(f"  {tag} B={rr['intra_pred_all']['B']}: " + ", ".join(
+            f"{n} {r['ms']:.4f} ms (device {dev_str(r['device_ms'])}; "
+            f"bound {bound_ms(*r['work'])[0]:.5f} {bound_ms(*r['work'])[1]})"
+            for n, r in rr.items()), flush=True)
+    for n in ("intra_pred_all", "satd_modes"):
+        recs = [rr[n] for tag, rr in k12.items()
+                if tag.startswith("config1 batch")]
+        print(f"  config 1's plan batch, {n}: {sum(r['ms'] for r in recs):.4f}"
+              f" ms over {len(recs)} classes (device "
+              f"{dev_str(dev_sum(r['device_ms'] for r in recs))}; bound "
+              f"{sum(bound_ms(*r['work'])[0] for r in recs):.4f})")
+    report["k1_k2"] = k12
+    ss = k12["search_step 16x16"]
 
     # phase 3, K5: two pictures at R = 64, 1080p (config 3's shape) and
     # 832x480 (config 2's), 8 and 10 bits; timed at 10 bits
@@ -2215,21 +2353,31 @@ def main(argv=None) -> int:
         fs_cases.update(fs_int_cases(torch, dev, pic10))
         cmp = old_new_phase(torch, dev, old_libs, me_cases, mi10,
                             tr_cases(torch, dev, pic10), fs_cases, reps=20)
-        print(f"phase 3: K5, K6, K9 and K11 against the kernels of "
+        print(f"phase 3: K1, K2, K5, K6, K9 and K11 against the kernels of "
               f"{args.old_csrc}: "
               "outputs equal; old -> new ms, called alike and timed old, "
               "new, new, old (device time of a call alone; the public "
               "function; bound)", flush=True)
+        cmp.update(old_new_k12(torch, dev, old_libs, k12c, reps=20))
         for n in ("frame_me", "mode_costs") + K6_ENTRIES + (
-                "full_search_sse",):
+                "full_search_sse", "intra_pred_all", "satd_modes"):
             for tag, r in cmp[n].items():
-                yard = r["int32_bound_ms"]
+                yard = r.get("int32_bound_ms")
                 print(f"  {n} {tag}: {r['old_ms']:.4f} -> {r['ms']:.4f} ms "
                       f"(device {dev_str(r['old_device_ms'])} -> "
                       f"{dev_str(r['device_ms'])}; public "
                       f"{r['public_ms']:.4f}; bound {r['bound_ms']:.5f}"
                       + ("" if yard is None else
                          f", int32 yardstick {yard:.5f}") + ")")
+        for n in ("intra_pred_all", "satd_modes"):
+            rs = [r for tag, r in cmp[n].items()
+                  if tag.startswith("config1 batch")]
+            print(f"  {n} config 1's plan batch ({len(rs)} classes): "
+                  f"{sum(r['old_ms'] for r in rs):.4f} -> "
+                  f"{sum(r['ms'] for r in rs):.4f} ms (device "
+                  f"{dev_str(dev_sum(r['old_device_ms'] for r in rs))} -> "
+                  f"{dev_str(dev_sum(r['device_ms'] for r in rs))}; bound "
+                  f"{sum(r['bound_ms'] for r in rs):.5f})")
         for label, r in cmp["resources"].items():
             print(resource_line(f"{label} (old)", r))
         report["old_new"] = cmp

@@ -838,3 +838,137 @@ def test_transform_integer_route_wraps_as_int32(cuda, w, h):
                        T.fwd_transform_batch_ref(t, w, h, 10))
     assert torch.equal(T.inv_transform_batch(off, w, h, 10),
                        T.inv_transform_batch_ref(t, w, h, 10))
+
+
+# ---------------------------------------------------------------------------
+# K1 intra_pred_all and K2 satd_modes: every class, bit depths, batches,
+# strides, alignment, M and the int16 wrap
+# ---------------------------------------------------------------------------
+
+ALL_K1_CLASSES = [(w, h) for w in (4, 8, 16, 32, 64)
+                  for h in (4, 8, 16, 32, 64)]
+
+
+def _k1_inputs(rng, B, w, h, bd, extra=0):
+    """tops/lefts [B, LPAD + extra] (row stride past LPAD when extra > 0)
+    and source blocks [B, h, w]; the first block's references alternate
+    between the rails."""
+    L = _shape_tables(w, h, True, 0).LPAD + extra
+    tops = rng.randint(0, 1 << bd, (B, L)).astype(np.int32)
+    lefts = rng.randint(0, 1 << bd, (B, L)).astype(np.int32)
+    tops[0, ::2] = lefts[0, 1::2] = (1 << bd) - 1
+    tops[0, 1::2] = lefts[0, ::2] = 0
+    src = rng.randint(0, 1 << bd, (B, h, w)).astype(np.int32)
+    return tops, lefts, src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("w,h", ALL_K1_CLASSES)
+def test_intra_pred_all_every_class_batch_and_stride(cuda, w, h, bd):
+    """K1 bit-exact on all 25 classes at 8, 10 and 12 bits: one block, a
+    batch that is not a multiple of any split (the whole card for a small
+    batch, one item a block for a large one), references wider than LPAD;
+    one launch per call."""
+    rng = np.random.RandomState(w * 131 + h * 7 + bd)
+    for B, extra in ((1, 0), (37, 5), (613, 0)):
+        tops, lefts, _ = (torch.from_numpy(a).to(cuda)
+                          for a in _k1_inputs(rng, B, w, h, bd, extra))
+        n = kernels.launches["intra_pred_all"]
+        pk = S.predict_all_modes(tops, lefts, w, h, bd)
+        pr = S.predict_all_modes_ref(tops, lefts, w, h, bd)
+        torch.cuda.synchronize()
+        assert kernels.launches["intra_pred_all"] == n + 1
+        assert pk.shape == (B, 67, h, w) and pk.dtype == torch.int16
+        assert torch.equal(pk, pr), (B, extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("w,h", ALL_K1_CLASSES)
+def test_satd_modes_every_class_batch_and_m(cuda, w, h, bd):
+    """K2 bit-exact on all 25 classes at 8, 10 and 12 bits, for M = 67, 1,
+    5 and 35 and batches of 1 and 45 blocks; one launch per call."""
+    rng = np.random.RandomState(w * 17 + h * 3 + bd)
+    for B, M in ((1, 67), (45, 67), (45, 1), (3, 5), (29, 35)):
+        src = torch.from_numpy(
+            rng.randint(0, 1 << bd, (B, h, w)).astype(np.int32)).to(cuda)
+        preds = torch.from_numpy(
+            rng.randint(0, 1 << bd, (B, M, h, w)).astype(np.int16)).to(cuda)
+        n = kernels.launches["satd_modes"]
+        sk = S.satd_batch(src, preds, w, h)
+        sr = S.satd_batch_ref(src, preds, w, h)
+        torch.cuda.synchronize()
+        assert kernels.launches["satd_modes"] == n + 1
+        assert sk.shape == (B, M) and sk.dtype == torch.int32
+        assert torch.equal(sk, sr), (B, M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (64, 64), (4, 16),
+                                 (16, 8), (8, 32), (32, 64)])
+def test_satd_modes_int16_wrap_extremes(cuda, w, h):
+    """Sources and predictions at opposite rails, up to 0 against 65535
+    (the int16 -1) and 65535 against 0: int16(src) - pred wraps as the
+    reference's int16 subtraction does, and the largest Hadamard
+    intermediates pass through the fused last stage."""
+    B, M = 4, 6
+    src = np.full((B, h, w), 1023, np.int32)
+    src[1] = 0
+    src[2, ::2] = 65535
+    src[3] = -32768
+    preds = np.zeros((B, M, h, w), np.int16)
+    preds[:, 0] = -1                    # 65535 as int16
+    preds[:, 1] = 32767
+    preds[:, 2, 1::2] = -32768
+    preds[:, 3] = 1023
+    preds[:, 4, :, ::3] = -1
+    src_t = torch.from_numpy(src).to(cuda)
+    preds_t = torch.from_numpy(preds).to(cuda)
+    assert torch.equal(S.satd_batch(src_t, preds_t, w, h),
+                       S.satd_batch_ref(src_t, preds_t, w, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (8, 4), (4, 16),
+                                 (32, 32)])
+def test_k1_k2_take_tensors_off_16_byte_alignment(cuda, w, h):
+    """Predictions 2 bytes off 16-byte alignment (K2 takes them through
+    2-byte loads) and references 4 bytes off (K1 reads them a word at a
+    time): both exact."""
+    rng = np.random.RandomState(w + 5 * h)
+    B, M = 21, 67
+    tops, lefts, src = (torch.from_numpy(a).to(cuda)
+                        for a in _k1_inputs(rng, B, w, h, 10, 3))
+
+    def off(t, k):
+        buf = torch.empty(t.numel() + k, dtype=t.dtype, device=cuda)
+        v = buf[k:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    t_off, l_off = off(tops, 1), off(lefts, 3)
+    assert t_off.data_ptr() % 16 == 4
+    pk = S.predict_all_modes(t_off, l_off, w, h, 10)
+    assert torch.equal(pk, S.predict_all_modes_ref(tops, lefts, w, h, 10))
+    p_off = off(pk, 1)
+    assert p_off.data_ptr() % 16 == 2
+    s_off = off(src, 1)
+    n = kernels.launches["satd_modes"]
+    sk = S.satd_batch(s_off, p_off, w, h)
+    torch.cuda.synchronize()
+    assert kernels.launches["satd_modes"] == n + 1
+    assert sk.shape == (B, M)
+    assert torch.equal(sk, S.satd_batch_ref(src, pk, w, h))
+
+
+@pytest.mark.cuda
+def test_k1_k2_resource_queries(cuda):
+    """vt_intra_pred_all_attrs / vt_satd_modes_attrs on every class: no
+    stack, spill or local memory, at least one resident block an SM."""
+    for w, h in ALL_K1_CLASSES:
+        for src, sym in (("intra_pred_all", "vt_intra_pred_all_attrs"),
+                         ("satd_modes", "vt_satd_modes_attrs")):
+            r = kernels.resources(src, sym, w, h)
+            assert r["local_bytes"] == 0, (sym, w, h, r)
+            assert r["blocks_per_sm"] >= 1, (sym, w, h, r)

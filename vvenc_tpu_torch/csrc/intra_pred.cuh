@@ -87,41 +87,46 @@ __device__ __forceinline__ int pool_dc(const int* pool, int LPAD, int w,
   return (s + (denom >> 1)) >> ilog2(denom);
 }
 
+// sample (yy, xx) of planar (mode 0) or DC (mode 1) of the candidate
+// whose pool (raw and filtered halves) and DC value are given: planar with
+// its MDIS (filtered references when w*h > 32), both with their PDPC
+__device__ __forceinline__ int planar_dc_sample(const int* pool, int dc,
+                                                int LPAD, int w, int h,
+                                                int bit_depth, int mode,
+                                                int yy, int xx) {
+  const bool mdis = mode == 0 && w * h > 32;
+  const int* ptop = pool + (mdis ? LPAD : 0);
+  const int* pleft = pool + (mdis ? 3 * LPAD : 2 * LPAD);
+  int v;
+  if (mode == 0) {
+    const int log2w = ilog2(w), log2h = ilog2(h);
+    const int lc = pleft[1 + yy], trr = ptop[1 + xx];
+    const int tr = ptop[1 + w], br = pleft[1 + h];
+    const int hor = lc * (1 << log2w) + (xx + 1) * (tr - lc);
+    const int ver = trr * (1 << log2h) + (yy + 1) * (br - trr);
+    v = (hor * (1 << log2h) + ver * (1 << log2w) +
+         (1 << (log2w + log2h))) >> (1 + log2w + log2h);
+  } else {
+    v = dc;
+  }
+  // planar/DC PDPC weight scale
+  const int pscale = (ilog2(w * h) - 2) >> 2;
+  const int wt = 32 >> min(31, (yy << 1) >> pscale);
+  const int wl = 32 >> min(31, (xx << 1) >> pscale);
+  v = v + ((wl * (pleft[1 + yy] - v) + wt * (ptop[1 + xx] - v) + 32) >> 6);
+  return clip(v, 0, (1 << bit_depth) - 1);
+}
+
 // sample (yy, xx) of mode `mode` of the candidate whose pool (raw and
 // filtered halves) and DC value are given
 __device__ __forceinline__ int pred_sample(const int* pool, int dc,
                                            const Tables& t, int w, int h,
                                            int bit_depth, int mode, int yy,
                                            int xx) {
-  const int LPAD = t.LPAD;
-  const int* top = pool;
-  const int* ftop = pool + LPAD;
-  const int* left = pool + 2 * LPAD;
-  const int* fleft = pool + 3 * LPAD;
+  if (mode < 2)
+    return planar_dc_sample(pool, dc, t.LPAD, w, h, bit_depth, mode, yy, xx);
   const int maxval = (1 << bit_depth) - 1;
   int v;
-  if (mode < 2) {
-    // planar MDIS: filtered references when w*h > 32
-    const int* ptop = mode == 0 && w * h > 32 ? ftop : top;
-    const int* pleft = mode == 0 && w * h > 32 ? fleft : left;
-    if (mode == 0) {
-      const int log2w = ilog2(w), log2h = ilog2(h);
-      const int lc = pleft[1 + yy], trr = ptop[1 + xx];
-      const int tr = ptop[1 + w], br = pleft[1 + h];
-      const int hor = lc * (1 << log2w) + (xx + 1) * (tr - lc);
-      const int ver = trr * (1 << log2h) + (yy + 1) * (br - trr);
-      v = (hor * (1 << log2h) + ver * (1 << log2w) +
-           (1 << (log2w + log2h))) >> (1 + log2w + log2h);
-    } else {
-      v = dc;
-    }
-    // planar/DC PDPC weight scale
-    const int pscale = (ilog2(w * h) - 2) >> 2;
-    const int wt = 32 >> min(31, (yy << 1) >> pscale);
-    const int wl = 32 >> min(31, (xx << 1) >> pscale);
-    v = v + ((wl * (pleft[1 + yy] - v) + wt * (ptop[1 + xx] - v) + 32) >> 6);
-    return clip(v, 0, maxval);
-  }
   const int mi = mode - 2;
   const int shift = __ldg(t.mode_info + 4 * mi);
   const int rnd = __ldg(t.mode_info + 4 * mi + 1);
