@@ -64,8 +64,11 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      full_search_sse_batch integer SSEs and argmins equal on the 1080p
      16x16 grid at R = 16 (B = 8,040), the 8x8 grid at R = 8 (B =
      32,400) and the 64x64 grid at R = 16 (B = 480), each timed; K10
-     sse/sad/satd_batch bit-exact at [8040, 16, 16] and [480, 64, 64],
-     tiles 4 and 8; K11 mode_costs_batch bit-exact on
+     sse/sad/satd_batch bit-exact at [8040, 16, 16] (satd tiles 4, 8
+     and 16) and [480, 64, 64] (tiles 4, 8 and 64); K8 timed per kind
+     (copy, horizontal, vertical, both) at luma 16x16 and chroma 8x8 and
+     at each luma phase, K10 satd per tile (the device time of a call
+     beside each); K11 mode_costs_batch bit-exact on
      the 1080p 16x16 and 32x32 grids and the 416x240 4x4, 8x8 and 64x64
      grids (8-bit: 416x240, every size), build_ref_mains (host) timed
      apart.  Times at 10 bits.
@@ -108,14 +111,20 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      graft_entry.dryrun_multichip(4), where search_step launches K1, K2,
      K6 and K7.
    With --old-csrc DIR (an older checkout's vvenc_tpu_torch/csrc, for
-   example the parent commit's, unpacked), phase 3 also builds that K1,
-   K2, K5, K6, K9 and K11 and sets them against the current ones,
-   called alike: outputs equal at every K5, K11 and K9 shape above (K9
-   also on its integer route: a 12-bit checkerboard at 16x16 R = 16 and
-   6x6 blocks at R = 8), every K6 class and search_step's shape, and
-   every K1 / K2 shape above, times taken in turns (old, new, new, old;
-   2000 calls a turn for K1, K2 and K6 at search_step's shape, three
-   rounds of turns averaged for K1 and K2), the old kernels' resources.
+   example the parent commit's, unpacked), phase 3 also imports the
+   package that holds DIR under another name (old_package), builds its
+   K1, K2, K5, K6, K8, K9, K10 and K11 with its own kernels module and
+   sets them against the current ones, called alike (old_new_case):
+   outputs equal at every K5, K11 and K9 shape above (K9 also on its
+   integer route: a 12-bit checkerboard at 16x16 R = 16 and 6x6 blocks
+   at R = 8), every K6 class and search_step's shape,
+   every K1 / K2 shape above, every K8 phase and K10 satd tile above (8
+   and 10 bits), times taken in turns (old, new, new, old; 2000 calls a
+   turn for K1, K2 and K6 at search_step's shape, three rounds of turns
+   averaged for K1 and K2, and for the public K8 and K10 satd calls
+   against the older package's own wrappers), device times (one phase
+   of each K8 kind and satd tile 8 also after an L2 flush), the old
+   kernels' resources.
    K6's and K9's bounds count the work as each kernel computes it
    (tr_bound_ms, fs_bound_ms), their int32 count beside as the
    yardstick.
@@ -214,18 +223,26 @@ TR_FUNCTIONS = {"fwd_transform_batch": "tr_kernel<true,",
 # K8-K11: the public functions that only their own callers reach
 BATCH_KERNELS = ("mc_batch", "full_search_sse", "sse_batch", "sad_batch",
                  "satd_batch", "mode_costs")
-# the __global__ function of each K8-K11 entry at its timed shape
-BATCH_FUNCTIONS = {"mc_batch": "mc_kernel<8>",
+# the __global__ function of each K8-K11 entry at its timed shape (K8
+# luma 16x16 at phase (8, 8), kind 3; K10 satd tile 8 on aligned inputs),
+# matched with the spaces taken out (kernel_time)
+BATCH_FUNCTIONS = {"mc_batch": "mc_kernel<8, 3, 16, true>",
                    "full_search_sse": "fs_kernel<",
                    "sse_batch": "dist_kernel<true>",
                    "sad_batch": "dist_kernel<false>",
-                   "satd_batch": "satd_small_kernel<8>",
+                   "satd_batch": "satd_warp_kernel<8, true>",
                    "mode_costs": "mode_costs_kernel<8, true>"}
 # K9's timed shapes on 1080p grids: (block side, R)
 FS_SHAPES = ((16, 16), (8, 8), (64, 16))
 # K8's phases: the 16 quarter-pel luma phases, a few 1/32 chroma ones
 LUMA_PHASES = tuple((fx, fy) for fy in (0, 4, 8, 12) for fx in (0, 4, 8, 12))
 CHROMA_PHASES = ((0, 0), (16, 0), (0, 8), (5, 27), (31, 31))
+# K8's kinds (0 copy, 1 horizontal, 2 vertical, 3 both) at one phase each,
+# luma 16x16 and chroma 8x8
+K8_KINDS = {"luma": ((0, 0), (8, 0), (0, 8), (8, 8)),
+            "chroma": ((0, 0), (16, 0), (0, 8), (5, 27))}
+# K10 satd's tiles on the 1080p 16x16 and 64x64 grids
+SATD_TILES = {"16x16": (4, 8, 16), "64x64": (4, 8, 64)}
 
 
 def make_clip(path: str, w: int, h: int, frames: int) -> None:
@@ -315,6 +332,15 @@ def device_ms(torch, calls, reps: int) -> dict:
         torch.cuda.synchronize()
     return {e.key: e.self_device_time_total / e.count / 1e3
             for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def kernel_time(prof: dict, fname: str):
+    """The device ms of the kernel whose name holds fname in a device_ms
+    result, spaces ignored; None (printed as not measured) when the
+    profiler recorded no such kernel."""
+    key = fname.replace(" ", "")
+    return next((v for k, v in prof.items() if key in k.replace(" ", "")),
+                None)
 
 
 def work(name: str, B: int, s: int, k: int) -> tuple:
@@ -457,11 +483,15 @@ def me_work(W: int, H: int, R: int) -> tuple:
 
 
 def mc_work(B: int, w: int, h: int, ntaps: int, fx: int, fy: int) -> tuple:
-    """(bytes, int32 operations) of one K8 call: the int32 windows read
-    once, the output written once; a filter output costs 2 per tap
-    (multiply, add) and 2 more (offset, shift), the last stage 2 more
-    (clip); the two-stage case filters every window row first."""
-    nbytes = B * ((h + ntaps - 1) * (w + ntaps - 1) + h * w) * 4
+    """(bytes, int32 operations) of one K8 call: the int32 window samples
+    the phase's kind needs read once (the copy h x w, horizontal only h x
+    (w + n - 1), vertical only (h + n - 1) x w, both the whole window),
+    the output written once; a filter output costs 2 per tap (multiply,
+    add) and 2 more (offset, shift), the last stage 2 more (clip); the
+    two-stage case filters every window row first."""
+    e = ntaps - 1
+    reads = (h + (e if fy else 0)) * (w + (e if fx else 0))
+    nbytes = B * (reads + h * w) * 4
     if fx == 0 and fy == 0:
         return nbytes, 0
     last = h * w * (2 * ntaps + 4)
@@ -1071,8 +1101,9 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
     argmins equal), then the times at 10 bits.  pics: {bd: (picture,
     second picture)} 1920x1080; small: {bd: 416x240 picture}; mi10,
     ref_secs: mode_grid_inputs of the 10-bit pictures.  Returns the
-    report record and K9's 10-bit inputs at FS_SHAPES ({(side, R):
-    (blocks, areas)})."""
+    report record, K9's 10-bit inputs at FS_SHAPES ({(side, R):
+    (blocks, areas)}) and the K8 / K10 inputs by bit depth ({10: ..., 8:
+    ...})."""
     from vvenc_tpu_torch.ops import interp as IP
     from vvenc_tpu_torch.ops import intra_batch as IB
     from vvenc_tpu_torch.ops import me as M
@@ -1112,7 +1143,7 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
             out += [(f"sse {tag}", lambda a=a, b=b: RD.sse_batch(a, b)),
                     (f"sad {tag}", lambda a=a, b=b: RD.sad_batch(a, b))]
             out += [(f"satd {tag} tile {t}", lambda a=a, b=b, t=t:
-                     RD.satd_batch(a, b, t)) for t in (4, 8)]
+                     RD.satd_batch(a, b, t)) for t in SATD_TILES[tag]]
         return out
 
     x10 = inputs(10)
@@ -1178,6 +1209,8 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
                                IB.mode_costs_batch_ref(*args, s, s, bd)):
                 fail(f"K11 mode_costs != plain, {tag}, {bd}-bit")
         torch.cuda.synchronize()
+        if bd == 8:   # kept for --old-csrc's K8 / K10 comparison
+            x8 = {k: v for k, v in x.items() if k not in ("fs", "areas")}
         del x
     # times at 10 bits: the kernels', the profiler's and the plain ones
     B16 = x10["blocks"].shape[0]
@@ -1233,18 +1266,46 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
                 blk, area, fs, fs), plain_reps),
             "device_ms": call_device_ms(torch, lambda: M.full_search_sse_batch(
                 blk, area, fs, fs), reps)}
-    rec["per_call"]["satd_batch tile 4"] = {
-        "ms": cuda_ms(torch, lambda: RD.satd_batch(x10["blocks"],
-                                                   x10["b16"], 4), reps),
-        "work": dist_work("satd_batch", B16, 16, 16, 4)}
+    # K8 per kind (luma 16x16, chroma 8x8) and at each of the 16 luma
+    # phases, K10 satd per tile on both grids: the device time of a call
+    # (per kind and tile also cold: after an L2 flush)
+    for plane, phases in K8_KINDS.items():
+        x, s = (x10["luma"], 16) if plane == "luma" else (x10["chroma"], 8)
+        n, nb = (8, True) if plane == "luma" else (4, False)
+        for kind, (fx, fy) in enumerate(phases):
+            nw = x.shape[0]
+            rec["per_call"][f"mc_batch {plane} {s}x{s} kind {kind}"] = {
+                "B": nw, "phase": (fx, fy),
+                "work": mc_work(nw, s, s, n, fx, fy),
+                "ms": cuda_ms(torch, lambda: IP.mc_batch(
+                    x, fx, fy, s, s, 10, nb), reps),
+                "device_ms": call_device_ms(torch, lambda: IP.mc_batch(
+                    x, fx, fy, s, s, 10, nb), reps),
+                "cold_device_ms": call_device_ms(torch, lambda: IP.mc_batch(
+                    x, fx, fy, s, s, 10, nb), reps, cold=True)}
+    rec["per_call"]["mc_batch luma phases device_ms"] = [
+        call_device_ms(torch, lambda fx=fx, fy=fy: IP.mc_batch(
+            x10["luma"], fx, fy, 16, 16, 10, True), reps)
+        for fx, fy in LUMA_PHASES]
+    for tag, tiles in SATD_TILES.items():
+        a, b = (x10["blocks"], x10["b16"]) if tag == "16x16" else \
+            (x10["a64"], x10["b64"])
+        for t in tiles:
+            nb_, H_, W_ = a.shape
+            rec["per_call"][f"satd_batch {tag} tile {t}"] = {
+                "B": nb_, "work": dist_work("satd_batch", nb_, H_, W_, t),
+                "ms": cuda_ms(torch, lambda: RD.satd_batch(a, b, t), reps),
+                "device_ms": call_device_ms(
+                    torch, lambda: RD.satd_batch(a, b, t), reps),
+                "cold_device_ms": call_device_ms(
+                    torch, lambda: RD.satd_batch(a, b, t), reps, cold=True)}
     prof = device_ms(torch, [
         lambda: IP.mc_batch(x10["luma"], 8, 8, 16, 16, 10, True)]
         + [timed[n][0] for n in timed], reps)
     for n, fname in BATCH_FUNCTIONS.items():
-        rec["device_ms"][n] = next(
-            (v for k, v in prof.items() if fname in k), None)
+        rec["device_ms"][n] = kernel_time(prof, fname)
     rec["B"] = B16
-    return rec, x10["fs"]
+    return rec, x10["fs"], {10: x10, 8: x8}
 
 
 def api_phase(torch, kernels, clips, tmp, report):
@@ -1649,61 +1710,45 @@ def encode(torch, tag, clip, w, h, frames, qp, preset, extra, plan=False):
 # the redesigned kernels that --old-csrc sets against an older build
 # (their C entries kept their signatures)
 OLD_SOURCES = ("frame_me", "mode_costs", "transform_batch", "full_search",
-               "intra_pred_all", "satd_modes")
+               "intra_pred_all", "satd_modes", "mc_batch", "dist_batch")
+# the name the older checkout's package is imported under
+OLD_PACKAGE = "old_vvenc_tpu_torch"
 
 
-def build_old(csrc: str) -> dict:
-    """Compiles OLD_SOURCES of another checkout's csrc/ directory (for
-    example the parent commit's, unpacked) with the port's nvcc flags into
-    vvenc_tpu_torch/_build/old/, one nvcc each, started together.
-    Returns {name: (ctypes library, ptxas report)}."""
-    import ctypes
-    from vvenc_tpu_torch.ops import kernels
-    out_dir = kernels.BUILD_DIR.parent / "old"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {n: subprocess.Popen(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out_dir / f"{n}.so"),
-         str(pathlib.Path(csrc) / f"{n}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for n in OLD_SOURCES}
-    libs = {}
-    for n, proc in procs.items():
-        o, e = proc.communicate()
-        if proc.returncode:
-            fail(f"nvcc failed for the old {n}.cu:\n{e}")
-        lib = ctypes.CDLL(str(out_dir / f"{n}.so"))
-        lib.vt_error_string.argtypes = [ctypes.c_int]
-        lib.vt_error_string.restype = ctypes.c_char_p
-        libs[n] = (lib, o + e)
-    return libs
+def old_package(csrc: str):
+    """Imports the package of another checkout, the directory that holds
+    `csrc` (for example the parent commit's, unpacked), as OLD_PACKAGE,
+    and builds its OLD_SOURCES with its own kernels module (into its own
+    _build/, one nvcc each, started together).  Its wrappers then launch
+    its own kernels: the old public calls are its ops functions.  Returns
+    (the older kernels module, {source: ptxas report})."""
+    import importlib
+    import importlib.util
+    root = pathlib.Path(csrc).resolve().parent
+    if OLD_PACKAGE not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            OLD_PACKAGE, root / "__init__.py",
+            submodule_search_locations=[str(root)])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[OLD_PACKAGE] = pkg
+        spec.loader.exec_module(pkg)
+    okern = old_module("ops.kernels")
+    return okern, okern.build(OLD_SOURCES)
 
 
-def old_function(lib, symbol: str, argtypes):
-    """The old kernel entry `symbol`, called like the current one: it
-    launches and fails the run if the launch was refused."""
-    import ctypes
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-
-    def call(*args):
-        err = fn(*args)
-        if err:
-            fail(f"old {symbol}: error {err} "
-                 f"({lib.vt_error_string(err).decode()})")
-    return call
+def old_module(name: str):
+    """Module `name` (for example "ops.interp") of the older package."""
+    import importlib
+    return importlib.import_module(f"{OLD_PACKAGE}.{name}")
 
 
-def old_resources(lib, symbol: str, *args) -> dict:
-    import ctypes
-    from vvenc_tpu_torch.ops import kernels
-    out = (ctypes.c_int * len(kernels.RESOURCE_KEYS))()
-    fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(*args, ctypes.addressof(out))
-    if err:
-        fail(f"old {symbol}: error {err}")
-    return dict(zip(kernels.RESOURCE_KEYS, out))
+def old_resources(okern, src: str, symbol: str, *args):
+    """The older kernel's resources as its own vt_*_attrs query reports
+    them; None where the older build has no such query."""
+    try:
+        return okern.resources(src, symbol, *args)
+    except AttributeError:
+        return None
 
 
 def dev_str(v) -> str:
@@ -1716,20 +1761,60 @@ def dev_sum(vs):
     return None if None in vs else sum(vs)
 
 
-def call_device_ms(torch, fn, reps: int):
-    """Device milliseconds per fn() call: every CUDA kernel it launches,
-    summed (torch.profiler's CUDA activity, after a warm-up call); None
-    when the profiler records no device time."""
+def call_device_ms(torch, fn, reps: int, cold: bool = False):
+    """Device milliseconds per fn() call from reps calls (torch.profiler's
+    CUDA activity, after a warm-up call): for each kernel the profiler
+    recorded, its launches a call k (its record count over reps, rounded)
+    times its mean time a record, summed.  The profiler on the H100 has
+    kept one record fewer than there were launches of each kernel in a
+    session (reps - 1 of reps), so a count may fall one short of k *
+    reps; a count further off, or k = 0, means records were lost: the
+    kernel is named with its count and the time is None (printed as not
+    measured), as it is when no device time is recorded.  With cold,
+    a read of twice the card's L2 cache (a reduction of its own, left
+    out) precedes each call, so that fn reads its inputs from device
+    memory; a read, not a write, so that no dirty line is left for fn's
+    misses to write back (after a write, the cold times held about the
+    inputs' bytes again)."""
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA]
+    skip = set()
+    if cold:
+        l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                     50 << 20)
+        flush = torch.zeros(2 * l2, dtype=torch.uint8, device="cuda")
+        with profile(activities=acts) as prof:
+            for _ in range(3):
+                flush.sum(dtype=torch.int32)
+            torch.cuda.synchronize()
+        skip = {e.key for e in prof.key_averages()
+                if e.self_device_time_total > 0}
+        if not skip:
+            return None
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         for _ in range(reps):
+            if cold:
+                flush.sum(dtype=torch.int32)
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.self_device_time_total > 0)
-    return total / reps / 1e3 if total > 0 else None
+    evs = [e for e in prof.key_averages()
+           if e.self_device_time_total > 0 and e.key not in skip]
+    if not evs:
+        return None
+    total, odd = 0.0, []
+    for e in evs:
+        k = round(e.count / reps)
+        if k < 1 or abs(e.count - k * reps) > 1:
+            odd.append(f"{e.key[:60]} x{e.count}")
+        else:
+            total += k * e.self_device_time_total / e.count
+    if odd:
+        print(f"  device time not measured: {reps} calls recorded "
+              + "; ".join(odd), flush=True)
+        return None
+    return total / 1e3
 
 
 def in_turns(torch, old, new, reps) -> tuple:
@@ -1777,178 +1862,167 @@ def fs_int_cases(torch, dev, pic) -> dict:
                         grid_windows(torch, dev, pic, 6, 22, -8, -8))}
 
 
-def old_new_phase(torch, dev, libs, me_cases, mi10, k6_cases, fs_cases,
+def kernel_pair(okern, src: str, symbol: str, argtypes, args_of,
+                before_old=None):
+    """call(v) for old_new_case: the current (v == "new") or the older
+    (v == "old") C entry `symbol` of source `src` on the arguments
+    args_of(v), the launch checked; before_old(), where given, runs
+    before each old launch (an output the old kernel adds into, zeroed)."""
+    from vvenc_tpu_torch.ops import kernels
+    fns = {"new": (kernels, kernels.function(src, symbol, argtypes)),
+           "old": (okern, okern.function(src, symbol, argtypes))}
+
+    def call(v):
+        if v == "old" and before_old is not None:
+            before_old()
+        mod, fn = fns[v]
+        err = fn(*args_of(v))
+        if err:
+            fail(f"{v} {symbol}: error {err} "
+                 f"({mod._LIBS[src].vt_error_string(err).decode()})")
+    return call
+
+
+def old_new_case(torch, label, call, outs, public, bound, reps, turn=None,
+                 rounds=1, device=None, cold=False, timed=True, **extra):
+    """One shape of the old/new comparison.  call(v) launches the old (v
+    == "old") or the new kernel with the wrapper's arguments into outs[v]
+    (a tensor or a tuple of them); the run fails unless both outputs are
+    equal.  Unless timed is False, returns the record: both timed in
+    turns, old, new, new, old (`rounds` rounds of `turn` calls, reps by
+    default, averaged), the device time of one call alone (device(v) in
+    place of call(v) where given; with cold also after an L2 flush), the
+    public function's time, the bound (ms) and `extra`."""
+    call("old")
+    call("new")
+    torch.cuda.synchronize()
+    pair = [o if isinstance(o, tuple) else (o,)
+            for o in (outs["old"], outs["new"])]
+    if not all(torch.equal(a, b) for a, b in zip(*pair)):
+        fail(f"{label}: the new kernel's output != the old kernel's")
+    if not timed:
+        return None
+    turn = turn or reps
+    rs = [in_turns(torch, lambda: call("old"), lambda: call("new"), turn)
+          for _ in range(rounds)]
+    device = device or call
+    rec = {"old_ms": sum(r[0] for r in rs) / rounds,
+           "ms": sum(r[1] for r in rs) / rounds,
+           "public_ms": cuda_ms(torch, public, turn),
+           "old_device_ms": call_device_ms(torch, lambda: device("old"),
+                                           reps),
+           "device_ms": call_device_ms(torch, lambda: device("new"), reps),
+           "bound_ms": bound, **extra}
+    if cold:
+        rec["old_cold_device_ms"] = call_device_ms(
+            torch, lambda: device("old"), reps, cold=True)
+        rec["cold_device_ms"] = call_device_ms(
+            torch, lambda: device("new"), reps, cold=True)
+    return rec
+
+
+def old_new_phase(torch, dev, okern, me_cases, mi10, k6_cases, fs_cases,
                   reps) -> dict:
-    """K5, K6, K9 and K11 against the older build `libs` (build_old) in
-    one call: the old kernels' outputs equal to the new ones' (K5 MVs and
-    costs, K6 coefficients or residuals, K9 and K11 costs) at every shape;
-    both kernels called the same way (one ctypes call into each library,
-    the old K11 with the zeroed output it needs) and timed in turns, CUDA
-    events around back-to-back calls (K6 at search_step's shape 2000
-    calls a turn), then the device time of each call alone (profiler) and
-    the new public function's time; the old kernels' resources.
+    """K5, K6, K9 and K11 against the older package's kernels (okern,
+    old_package) in one call, each shape through old_new_case (K6 at
+    search_step's shape 2000 calls a turn; the old K11 into the zeroed
+    output it needs), then the old kernels' resources.
     me_cases: {tag: (src plane, ref plane, W, H, R)}; mi10: K11's inputs
     by MODE_SIZES tag; k6_cases: tr_cases; fs_cases: {tag: (h, w, R,
     blocks, areas)}.  Returns the record."""
     from vvenc_tpu_torch.ops import intra_batch as IB
     from vvenc_tpu_torch.ops import kernels
     from vvenc_tpu_torch.ops import me as M
-    me_lib, mc_lib = libs["frame_me"][0], libs["mode_costs"][0]
-    k5 = kernels.function("frame_me", "vt_frame_me", M._K5_ARGS)
-    k11 = kernels.function("mode_costs", "vt_mode_costs", IB._K11_ARGS)
-    old_k5 = old_function(me_lib, "vt_frame_me", M._K5_ARGS)
-    old_k11 = old_function(mc_lib, "vt_mode_costs", IB._K11_ARGS)
-    rec = {"frame_me": {}, "mode_costs": {}, "resources": {}}
-
-    def timed(kind, tag, old, new, public, bound, yardstick=None,
-              turn_reps=reps):
-        o, n = in_turns(torch, old, new, turn_reps)
-        rec[kind][tag] = {
-            "old_ms": o, "ms": n, "public_ms": cuda_ms(torch, public, reps),
-            "old_device_ms": call_device_ms(torch, old, reps),
-            "device_ms": call_device_ms(torch, new, reps),
-            "bound_ms": bound[0], "int32_bound_ms": yardstick}
-
+    from vvenc_tpu_torch.ops import transforms as T
+    rec = {"frame_me": {}, "mode_costs": {}, "full_search_sse": {},
+           "resources": {}}
     for tag, (sp, rp, W, H, R) in me_cases.items():
         B = (W // M.ME_BS) * (H // M.ME_BS)
         outs = {v: (torch.empty((B, 2), dtype=torch.int32, device=dev),
                     torch.empty((B,), dtype=torch.float32, device=dev))
                 for v in ("old", "new")}
-
-        def call(v):
-            mv, cost = outs[v]
-            args = (sp.data_ptr(), rp.data_ptr(), sp.shape[1], W // M.ME_BS,
-                    H // M.ME_BS, R, mv.data_ptr(), cost.data_ptr(),
-                    kernels.stream_ptr(mv))
-            if v == "old":
-                old_k5(*args)
-            else:
-                kernels.check("frame_me", k5(*args))
-        call("old")
-        call("new")
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(outs["old"],
-                                                       outs["new"])):
-            fail(f"K5 frame_me ({tag}): the new kernel's MVs or costs != "
-                 "the old kernel's")
-        timed("frame_me", tag, lambda: call("old"), lambda: call("new"),
-              lambda: M.frame_me(sp, rp, W, H, R),
-              bound_ms(*me_work(W, H, R)))
+        call = kernel_pair(okern, "frame_me", "vt_frame_me", M._K5_ARGS,
+                           lambda v: (
+                               sp.data_ptr(), rp.data_ptr(), sp.shape[1],
+                               W // M.ME_BS, H // M.ME_BS, R,
+                               outs[v][0].data_ptr(), outs[v][1].data_ptr(),
+                               kernels.stream_ptr(outs[v][0])))
+        rec["frame_me"][tag] = old_new_case(
+            torch, f"K5 frame_me ({tag})", call, outs,
+            lambda: M.frame_me(sp, rp, W, H, R),
+            bound_ms(*me_work(W, H, R))[0], reps)
     for tag, s in MODE_SIZES:
         src, rm, tops, lefts = mi10[tag]
         B = src.shape[0]
         outs = {v: torch.zeros((B, 67), dtype=torch.int32, device=dev)
                 for v in ("old", "new")}
         row_start, filt, transposed = IB._device_tables(s, dev)
-
-        def call(v):
-            out = outs[v]
-            args = (src.data_ptr(), rm.data_ptr(), tops.data_ptr(),
-                    tops.shape[1], lefts.data_ptr(), lefts.shape[1],
-                    out.data_ptr(), B, rm.shape[2], s, 10,
-                    row_start.data_ptr(), filt.data_ptr(),
-                    transposed.data_ptr(), kernels.stream_ptr(out))
-            if v == "old":
-                out.zero_()
-                old_k11(*args)
-            else:
-                kernels.check("mode_costs", k11(*args))
-        call("old")
-        call("new")
-        torch.cuda.synchronize()
-        if not torch.equal(outs["old"], outs["new"]):
-            fail(f"K11 mode_costs ({tag}): the new kernel's costs != the "
-                 "old kernel's")
-        timed("mode_costs", tag, lambda: call("old"), lambda: call("new"),
-              lambda: IB.mode_costs_batch(src, rm, tops, lefts, s, s, 10),
-              bound_ms(*mode_work(B, s)))
-    from vvenc_tpu_torch.ops import transforms as T
-    tr_lib, fs_lib = libs["transform_batch"][0], libs["full_search"][0]
-    for n, inverse in (("fwd_transform_batch", 0), ("inv_transform_batch", 1)):
+        call = kernel_pair(
+            okern, "mode_costs", "vt_mode_costs", IB._K11_ARGS,
+            lambda v: (src.data_ptr(), rm.data_ptr(), tops.data_ptr(),
+                       tops.shape[1], lefts.data_ptr(), lefts.shape[1],
+                       outs[v].data_ptr(), B, rm.shape[2], s, 10,
+                       row_start.data_ptr(), filt.data_ptr(),
+                       transposed.data_ptr(), kernels.stream_ptr(outs[v])),
+            before_old=lambda: outs["old"].zero_())
+        rec["mode_costs"][tag] = old_new_case(
+            torch, f"K11 mode_costs ({tag})", call, outs,
+            lambda: IB.mode_costs_batch(src, rm, tops, lefts, s, s, 10),
+            bound_ms(*mode_work(B, s))[0], reps)
+    for n, inverse in (("fwd_transform_batch", False),
+                       ("inv_transform_batch", True)):
         rec[n] = {}
         for tag, (w, h, resi, ck) in k6_cases.items():
             x = ck if inverse else resi
             outs = {v: torch.empty_like(x) for v in ("old", "new")}
             # the arguments the wrappers pass (ops/transforms.k6_launch)
-            launch = {v: T.k6_launch(x, outs[v], w, h, 10, bool(inverse))
+            launch = {v: T.k6_launch(x, outs[v], w, h, 10, inverse)
                       for v in outs}
             sym, argt = launch["new"][:2]
-            new_fn = kernels.function("transform_batch", sym, argt)
-            old_fn = old_function(tr_lib, sym, argt)
-            args = {v: launch[v][2] for v in outs}
-
-            def call(v):
-                if v == "old":
-                    old_fn(*args[v])
-                else:
-                    kernels.check("transform_batch", new_fn(*args[v]))
-            call("old")
-            call("new")
-            torch.cuda.synchronize()
-            if not torch.equal(outs["old"], outs["new"]):
-                fail(f"K6 {n} ({tag}): the new kernel's output != the old "
-                     "kernel's")
-            timed(n, tag, lambda: call("old"), lambda: call("new"),
-                  lambda: getattr(T, n)(x, w, h, 10),
-                  tr_bound_ms(n, x.shape[0], w, h),
-                  bound_ms(*tr_work(n, x.shape[0], w, h))[0],
-                  2000 if tag.startswith("search_step") else reps)
-    k9 = kernels.function("full_search", "vt_full_search_sse", M._K9_ARGS)
-    old_k9 = old_function(fs_lib, "vt_full_search_sse", M._K9_ARGS)
-    rec["full_search_sse"] = {}
+            call = kernel_pair(okern, "transform_batch", sym, argt,
+                               lambda v: launch[v][2])
+            rec[n][tag] = old_new_case(
+                torch, f"K6 {n} ({tag})", call, outs,
+                lambda: getattr(T, n)(x, w, h, 10),
+                tr_bound_ms(n, x.shape[0], w, h)[0], reps,
+                turn=2000 if tag.startswith("search_step") else reps,
+                int32_bound_ms=bound_ms(*tr_work(n, x.shape[0], w, h))[0])
     for tag, (bh, bw, R, blk, area) in fs_cases.items():
         B = blk.shape[0]
         outs = {v: torch.empty((B, 2 * R + 1, 2 * R + 1), dtype=torch.float32,
                                device=dev) for v in ("old", "new")}
-
-        def call(v):
-            out = outs[v]
-            args = (blk.data_ptr(), area.data_ptr(), out.data_ptr(), B, bh,
-                    bw, area.shape[1], area.shape[2], kernels.stream_ptr(out))
-            if v == "old":
-                old_k9(*args)
-            else:
-                kernels.check("full_search", k9(*args))
-        call("old")
-        call("new")
-        torch.cuda.synchronize()
-        if not torch.equal(outs["old"], outs["new"]):
-            fail(f"K9 full_search_sse ({tag}): the new kernel's costs != "
-                 "the old kernel's")
+        call = kernel_pair(okern, "full_search", "vt_full_search_sse",
+                           M._K9_ARGS, lambda v: (
+                               blk.data_ptr(), area.data_ptr(),
+                               outs[v].data_ptr(), B, bh, bw, area.shape[1],
+                               area.shape[2], kernels.stream_ptr(outs[v])))
         float_route = "checkerboard" not in tag and bw % 4 == 0
-        timed("full_search_sse", tag, lambda: call("old"),
-              lambda: call("new"),
-              lambda: M.full_search_sse_batch(blk, area, bh, bw),
-              fs_bound_ms(B, bh, bw, R, float_route),
-              bound_ms(*fs_work(B, bh, bw, R))[0])
-    rec["resources"]["frame_me"] = old_resources(me_lib, "vt_frame_me_attrs")
-    for s in (4, 8, 16, 32, 64):
-        rec["resources"][f"mode_costs {s}x{s}"] = old_resources(
-            mc_lib, "vt_mode_costs_attrs", s)
-    for label, src, symbol, args in resource_rows():
-        lib = libs[src][0] if src in libs else None
-        # an older build may lack the K1 / K2 / K6 / K9 resource queries
-        if lib is not None and hasattr(lib, symbol):
-            rec["resources"][label] = old_resources(lib, symbol, *args)
+        rec["full_search_sse"][tag] = old_new_case(
+            torch, f"K9 full_search_sse ({tag})", call, outs,
+            lambda: M.full_search_sse_batch(blk, area, bh, bw),
+            fs_bound_ms(B, bh, bw, R, float_route)[0], reps,
+            int32_bound_ms=bound_ms(*fs_work(B, bh, bw, R))[0])
+    rows = [("frame_me", "frame_me", "vt_frame_me_attrs", ())]
+    rows += [(f"mode_costs {s}x{s}", "mode_costs", "vt_mode_costs_attrs",
+              (s,)) for s in (4, 8, 16, 32, 64)]
+    for label, src, symbol, args in rows + resource_rows():
+        # an older build may lack a kernel's resource query
+        if src in OLD_SOURCES and label not in rec["resources"]:
+            r = old_resources(okern, src, symbol, *args)
+            if r is not None:
+                rec["resources"][label] = r
     return rec
 
 
-def old_new_k12(torch, dev, libs, cases, reps) -> dict:
-    """K1 and K2 against the older build `libs` (build_old) on every case
-    of k12_cases: outputs equal; both called alike (one ctypes call into
-    each library with the wrapper's arguments) and timed in turns, old,
-    new, new, old (at search_step's shape three rounds of turns of 2000
-    calls, averaged), then the device time of one call alone and the
-    public function's time.
+def old_new_k12(torch, dev, okern, cases, reps) -> dict:
+    """K1 and K2 against the older package's kernels (okern) on every
+    case of k12_cases through old_new_case with the wrappers' arguments
+    (at search_step's shape three rounds of turns of 2000 calls).
     Returns {entry: {tag: record}}."""
     from vvenc_tpu_torch.ops import intra_presel as S
     from vvenc_tpu_torch.ops import kernels
     from vvenc_tpu_torch.ops.tables import device_tables
-    fns = {n: (kernels.function(n, f"vt_{n}", a),
-               old_function(libs[n][0], f"vt_{n}", a))
-           for n, a in (("intra_pred_all", S._K1_ARGS),
-                        ("satd_modes", S._K2_ARGS))}
-    rec = {n: {} for n in fns}
+    rec = {"intra_pred_all": {}, "satd_modes": {}}
     for tag, (w, h, blocks, tops, lefts) in cases.items():
         B = blocks.shape[0]
         t = device_tables(w, h, dev)
@@ -1958,49 +2032,125 @@ def old_new_k12(torch, dev, libs, cases, reps) -> dict:
                  for v in ("old", "new")}
         # the wrappers' arguments (ops/intra_presel.predict_all_modes,
         # satd_batch); K2 reads the new kernel's predictions
-        args = {"intra_pred_all": lambda v: (
+        k1_args = lambda v: (  # noqa: E731
             tops.data_ptr(), tops.shape[1], lefts.data_ptr(),
             lefts.shape[1], preds[v].data_ptr(), B, w, h, 10,
             t["rm_flat"].data_ptr(), t["row_start"].data_ptr(),
             t["filt"].data_ptr(), t["mode_info"].data_ptr(),
             t["pdpc_wl"].data_ptr(), t["side_flat"].data_ptr(), t["LPAD"],
-            t["LR"], t["TM"], t["B0"], kernels.stream_ptr(preds[v])),
-            "satd_modes": lambda v: (
+            t["LR"], t["TM"], t["B0"], kernels.stream_ptr(preds[v]))
+        k2_args = lambda v: (  # noqa: E731
             blocks.data_ptr(), preds["new"].data_ptr(), costs[v].data_ptr(),
-            B * 67, 67, w, h, kernels.stream_ptr(costs[v]))}
-        public = {"intra_pred_all":
-                  lambda: S.predict_all_modes(tops, lefts, w, h, 10),
-                  "satd_modes":
-                  lambda: S.satd_batch(blocks, preds["new"], w, h)}
-        outs = {"intra_pred_all": preds, "satd_modes": costs}
+            B * 67, 67, w, h, kernels.stream_ptr(costs[v]))
         turn = 2000 if tag.startswith("search_step") else reps
-        for n, (new_fn, old_fn) in fns.items():
-            def call(v, n=n, new_fn=new_fn, old_fn=old_fn):
-                if v == "old":
-                    old_fn(*args[n](v))
-                else:
-                    kernels.check(n, new_fn(*args[n](v)))
-            call("old")
-            call("new")
-            torch.cuda.synchronize()
-            if not torch.equal(outs[n]["old"], outs[n]["new"]):
-                fail(f"{n} ({tag}): the new kernel's output != the old "
-                     "kernel's")
+        for n, argt, args_of, outs, public in (
+                ("intra_pred_all", S._K1_ARGS, k1_args, preds,
+                 lambda: S.predict_all_modes(tops, lefts, w, h, 10)),
+                ("satd_modes", S._K2_ARGS, k2_args, costs,
+                 lambda: S.satd_batch(blocks, preds["new"], w, h))):
             # host-bound calls drift between turns: at search_step's
             # shape three rounds of turns, averaged
-            rounds = [in_turns(torch, lambda: call("old"),
-                               lambda: call("new"), turn)
-                      for _ in range(3 if turn > reps else 1)]
-            o = sum(r[0] for r in rounds) / len(rounds)
-            nw = sum(r[1] for r in rounds) / len(rounds)
-            rec[n][tag] = {
-                "B": B, "w": w, "h": h, "old_ms": o, "ms": nw,
-                "public_ms": cuda_ms(torch, public[n], turn),
-                "old_device_ms": call_device_ms(torch, lambda: call("old"),
-                                                20),
-                "device_ms": call_device_ms(torch, lambda: call("new"), 20),
-                "bound_ms": bound_ms(*k12_work(n, B, w, h))[0]}
+            rec[n][tag] = old_new_case(
+                torch, f"{n} ({tag})",
+                kernel_pair(okern, n, f"vt_{n}", argt, args_of), outs,
+                public, bound_ms(*k12_work(n, B, w, h))[0], reps, turn=turn,
+                rounds=3 if turn > reps else 1, B=B, w=w, h=h)
     return rec
+
+
+def old_new_k8k10(torch, dev, okern, x10, x8, reps) -> dict:
+    """K8 and K10's satd entry against the older package's kernels
+    (okern) through old_new_case: every phase of run_batch_ops (K8 luma
+    16x16 and chroma 8x8) and every tile of SATD_TILES, outputs equal at 8
+    and 10 bits, timed at 10 bits (the old satd into an output zeroed in
+    the same call, as its wrapper did, and its device time without the
+    zero-fill); K8_KINDS' phases and satd tile 8 also cold.  Then the
+    public calls in 2000-call turns, three rounds: the current wrappers
+    against the older package's own (its ops/interp.mc_batch and
+    ops/rdcost.satd_batch) at K8's phase (8, 8) and satd tile 8, on the
+    1080p 16x16 grid.  x10, x8: run_batch_ops' inputs.
+    Returns {entry: {tag: record}}."""
+    import ctypes
+    from vvenc_tpu_torch.ops import interp as IP
+    from vvenc_tpu_torch.ops import kernels
+    from vvenc_tpu_torch.ops import rdcost as RD
+    rec = {"mc_batch": {}, "satd_batch": {}, "public": {}}
+    cases = [("luma", fx, fy) for fx, fy in LUMA_PHASES] + \
+        [("chroma", fx, fy) for fx, fy in CHROMA_PHASES]
+    sargs = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    for bd, x in ((10, x10), (8, x8)):
+        for plane, fx, fy in cases:
+            luma = plane == "luma"
+            win, s = (x["luma"], 16) if luma else (x["chroma"], 8)
+            B = win.shape[0]
+            args = IP._k8_args(fx, fy, bd, luma)
+            outs = {v: torch.empty((B, s, s), dtype=torch.int32, device=dev)
+                    for v in ("old", "new")}
+            call = kernel_pair(okern, "mc_batch", "vt_mc_batch", IP._K8_ARGS,
+                               lambda v: (win.data_ptr(), outs[v].data_ptr(),
+                                          B, s, s, *args,
+                                          kernels.stream_ptr(outs[v])))
+            r = old_new_case(
+                torch, f"K8 mc_batch ({plane} {fx},{fy}, {bd}-bit)", call,
+                outs, lambda: IP.mc_batch(win, fx, fy, s, s, 10, luma),
+                bound_ms(*mc_work(B, s, s, 8 if luma else 4, fx, fy))[0],
+                reps, cold=(fx, fy) in K8_KINDS[plane], timed=bd == 10, B=B)
+            if r is not None:
+                rec["mc_batch"][f"{plane} {s}x{s} {fx},{fy}"] = r
+        for tag, tiles in SATD_TILES.items():
+            a, b = (x["blocks"], x["b16"]) if tag == "16x16" else \
+                (x["a64"], x["b64"])
+            B, H, W = a.shape
+            for t in tiles:
+                outs = {v: torch.empty((B,), dtype=torch.int32, device=dev)
+                        for v in ("old", "new")}
+
+                def args_of(v):
+                    return (a.data_ptr(), b.data_ptr(), outs[v].data_ptr(), B,
+                            H, W, t, kernels.stream_ptr(outs[v]))
+                r = old_new_case(
+                    torch, f"K10 satd_batch ({tag} tile {t}, {bd}-bit)",
+                    kernel_pair(okern, "dist_batch", "vt_satd_batch", sargs,
+                                args_of,
+                                before_old=lambda: outs["old"].zero_()),
+                    outs, lambda: RD.satd_batch(a, b, t),
+                    bound_ms(*dist_work("satd_batch", B, H, W, t))[0], reps,
+                    device=kernel_pair(okern, "dist_batch", "vt_satd_batch",
+                                       sargs, args_of),
+                    cold=t == 8, timed=bd == 10, B=B)
+                if r is not None:
+                    rec["satd_batch"][f"{tag} tile {t}"] = r
+    old_ip, old_rd = old_module("ops.interp"), old_module("ops.rdcost")
+    win, blk, b16 = x10["luma"], x10["blocks"], x10["b16"]
+    for tag, old, new in (
+            ("mc_batch luma 16x16 8,8",
+             lambda: old_ip.mc_batch(win, 8, 8, 16, 16, 10, True),
+             lambda: IP.mc_batch(win, 8, 8, 16, 16, 10, True)),
+            ("satd_batch 16x16 tile 8", lambda: old_rd.satd_batch(blk, b16, 8),
+             lambda: RD.satd_batch(blk, b16, 8))):
+        if not torch.equal(old(), new()):
+            fail(f"public {tag}: the new wrapper's output != the old one's")
+        rounds = [in_turns(torch, old, new, 2000) for _ in range(3)]
+        rec["public"][tag] = {"old_ms": [r[0] for r in rounds],
+                              "ms": [r[1] for r in rounds]}
+    return rec
+
+
+def print_old_new(cmp: dict, names) -> None:
+    """One line per shape of the old/new records of entries `names`."""
+    for n in names:
+        for tag, r in cmp[n].items():
+            yard = r.get("int32_bound_ms")
+            cold = "" if "cold_device_ms" not in r else (
+                f"; cold {dev_str(r['old_cold_device_ms'])} -> "
+                f"{dev_str(r['cold_device_ms'])}")
+            print(f"  {n} {tag}: {r['old_ms']:.4f} -> {r['ms']:.4f} ms "
+                  f"(device {dev_str(r['old_device_ms'])} -> "
+                  f"{dev_str(r['device_ms'])}{cold}; public "
+                  f"{r['public_ms']:.4f}; bound {r['bound_ms']:.5f}"
+                  + ("" if yard is None else
+                     f", int32 yardstick {yard:.5f}") + ")")
 
 
 def print_ptxas(built: dict) -> None:
@@ -2022,7 +2172,9 @@ def resource_rows() -> list:
     """(label, source, vt_*_attrs symbol, int arguments) of every kernel
     whose resources phase 3 prints: K3 (both entries) and K4 (both
     entries) per class, K5, K11 per block size, K6 (both entries) per
-    class, K9 at its timed shapes, K1 and K2 per class of TR_CLASSES."""
+    class, K9 at its timed shapes, K1 and K2 per class of TR_CLASSES, K8
+    per kind at luma 16x16 and chroma 8x8 (and luma 128x128 kind 3), K10
+    satd per tile of SATD_TILES."""
     from vvenc_tpu_torch.ops import intra_presel as S
     from vvenc_tpu_torch.ops.tables import presel_mode_tables
     rows = [(f"{name} {s}x{s}", "plan_trial", f"vt_{name}_attrs", (s, s))
@@ -2047,6 +2199,15 @@ def resource_rows() -> list:
     rows += [(f"{n} {w}x{h}", n, f"vt_{n}_attrs", (w, h))
              for n in ("intra_pred_all", "satd_modes")
              for (w, h) in TR_CLASSES]
+    rows += [(f"mc_batch {plane} {s}x{s} kind {kind}", "mc_batch",
+              "vt_mc_batch_attrs", (s, s, n, kind))
+             for plane, s, n in (("luma", 16, 8), ("chroma", 8, 4))
+             for kind in range(4)]
+    rows.append(("mc_batch luma 128x128 kind 3", "mc_batch",
+                 "vt_mc_batch_attrs", (128, 128, 8, 3)))
+    rows += [(f"satd_batch {tag} tile {t}", "dist_batch",
+              "vt_dist_batch_attrs", (t, int(tag[:2]), int(tag[:2])))
+             for tag, tiles in SATD_TILES.items() for t in tiles]
     return rows
 
 
@@ -2059,9 +2220,9 @@ def resource_line(label: str, r: dict) -> str:
 
 def print_resources() -> dict:
     """Prints and returns the resources of K1's, K2's, K3's, K4's, K5's,
-    K6's, K9's and K11's kernels (registers, shared memory, threads,
-    resident blocks per SM and local memory, from each source's
-    vt_*_attrs query on this card)."""
+    K6's, K8's, K9's, K10 satd's and K11's kernels (registers, shared
+    memory, threads, resident blocks per SM and local memory, from each
+    source's vt_*_attrs query on this card)."""
     from vvenc_tpu_torch.ops import kernels
     out = {}
     for label, src, symbol, args in resource_rows():
@@ -2197,8 +2358,9 @@ def main(argv=None) -> int:
     ap.add_argument("--json", dest="json_path", default=None,
                     help="also write the detailed numbers to this file")
     ap.add_argument("--old-csrc", default=None,
-                    help="a csrc/ directory of an older checkout: also "
-                         "build its K1, K2, K5, K6, K9 and K11 sources and "
+                    help="the vvenc_tpu_torch/csrc directory of an older "
+                         "checkout: also import that package, build its "
+                         "K1, K2, K5, K6, K8, K9, K10 and K11 sources and "
                          "set them against the current ones (outputs equal, "
                          "times in turns, resources)")
     args = ap.parse_args(argv)
@@ -2220,19 +2382,20 @@ def main(argv=None) -> int:
     from vvenc_tpu_torch.ops import kernels
     t0 = time.time()
     built = {}
-    old_libs = {}
+    old = {}
     th = threading.Thread(target=lambda: built.update(kernels.build()))
     th.start()
     if args.old_csrc:
-        th_old = threading.Thread(
-            target=lambda: old_libs.update(build_old(args.old_csrc)))
+        th_old = threading.Thread(target=lambda: old.update(
+            zip(("kernels", "built"), old_package(args.old_csrc))))
         th_old.start()
     from vvenc_tpu_torch import capi_c, native
     capi_c.build()
     th.join()
     if args.old_csrc:
         th_old.join()
-        if set(old_libs) != set(OLD_SOURCES):
+        if "kernels" not in old or not all(
+                old["kernels"].so_path(n).exists() for n in OLD_SOURCES):
             fail(f"the old kernels of {args.old_csrc} did not build")
     t_build = time.time() - t0
     if not native.available():
@@ -2244,7 +2407,8 @@ def main(argv=None) -> int:
     print(f"phase 2: built {len(kernels.SOURCES)} kernel sources, the "
           f"native library and the C shim in {t_build:.1f} s", flush=True)
     print_ptxas(built)
-    print_ptxas({f"{n} (old)": log for n, (_, log) in old_libs.items()})
+    print_ptxas({f"{n} (old)": log
+                 for n, log in old.get("built", {}).items()})
 
     report = {"card": card, "kind": kind, "build_seconds": t_build}
     pic10, crecs, precs, (pms, pbound, pby), (gms, gbound, gby) = \
@@ -2314,16 +2478,16 @@ def main(argv=None) -> int:
     pair8 = luma_frames(W, H, 2, 8, seed=81)
     small = {bd: luma_frames(416, 240, 1, bd, seed=91)[0] for bd in (8, 10)}
     mi10, ref_secs = mode_grid_inputs(torch, dev, pic10, small[10])
-    batch, batch_fs_cases = run_batch_ops(
+    batch, batch_fs_cases, batch_x = run_batch_ops(
         torch, dev, kernels,
         {10: (pic10, luma_frames(W, H, 2, 10, seed=31)[1]),
          8: tuple(pair8)}, small, mi10, ref_secs, reps=20, plain_reps=2)
     print(f"phase 3: K8 mc_batch ({len(LUMA_PHASES)} luma phases on "
           f"{batch['B']} 16x16 blocks, {len(CHROMA_PHASES)} chroma phases "
           "on 8x8 blocks of 960x540), K9 full_search_sse (16x16, R=16: "
-          "integer SSEs and argmins equal), K10 sse/sad/satd (tiles 4 and "
-          "8, [B,16,16] and [480,64,64]) and K11 mode_costs (1080p 16x16 "
-          "and 32x32, 416x240 4x4/8x8/64x64; 8-bit on 416x240 4..64) "
+          "integer SSEs and argmins equal), K10 sse/sad/satd ([B,16,16] "
+          "satd tiles 4/8/16, [480,64,64] tiles 4/8/64) and K11 "
+          "mode_costs (1080p 16x16 and 32x32, 416x240 4x4/8x8/64x64; 8-bit on 416x240 4..64) "
           "bit-exact against their plain versions at 8 and 10 bits; "
           "build_ref_mains (host) " + ", ".join(
               f"{k} {v:.2f} s" for k, v in
@@ -2346,29 +2510,33 @@ def main(argv=None) -> int:
         r = batch["per_call"][f"mode_costs {tag}"]
         print(f"  mode_costs {tag} B={r['B']}: {r['ms']:.4f} ms (bound "
               f"{bound_ms(*r['work'])[0]:.4f})")
+    for k, r in batch["per_call"].items():
+        if " kind " in k or k.startswith("satd_batch "):
+            bms, by = bound_ms(*r["work"])
+            print(f"  {k} B={r['B']}: {r['ms']:.4f} ms (device "
+                  f"{dev_str(r['device_ms'])}, cold "
+                  f"{dev_str(r['cold_device_ms'])}; bound {bms:.5f} {by})")
+    lp = batch["per_call"]["mc_batch luma phases device_ms"]
+    mean = dev_sum(lp)
+    print("  mc_batch luma 16x16, device ms of the 16 phases "
+          f"{LUMA_PHASES}: " + ", ".join(dev_str(v) for v in lp)
+          + f"; mean {dev_str(None if mean is None else mean / len(lp))}")
     report["batch_ops"] = batch
-    if old_libs:
+    if old:
+        okern = old["kernels"]
         fs_cases = {f"{s}x{s} R={R}": (s, s, R) + batch_fs_cases[(s, R)]
                     for s, R in FS_SHAPES}
         fs_cases.update(fs_int_cases(torch, dev, pic10))
-        cmp = old_new_phase(torch, dev, old_libs, me_cases, mi10,
+        cmp = old_new_phase(torch, dev, okern, me_cases, mi10,
                             tr_cases(torch, dev, pic10), fs_cases, reps=20)
         print(f"phase 3: K1, K2, K5, K6, K9 and K11 against the kernels of "
               f"{args.old_csrc}: "
               "outputs equal; old -> new ms, called alike and timed old, "
               "new, new, old (device time of a call alone; the public "
               "function; bound)", flush=True)
-        cmp.update(old_new_k12(torch, dev, old_libs, k12c, reps=20))
-        for n in ("frame_me", "mode_costs") + K6_ENTRIES + (
-                "full_search_sse", "intra_pred_all", "satd_modes"):
-            for tag, r in cmp[n].items():
-                yard = r.get("int32_bound_ms")
-                print(f"  {n} {tag}: {r['old_ms']:.4f} -> {r['ms']:.4f} ms "
-                      f"(device {dev_str(r['old_device_ms'])} -> "
-                      f"{dev_str(r['device_ms'])}; public "
-                      f"{r['public_ms']:.4f}; bound {r['bound_ms']:.5f}"
-                      + ("" if yard is None else
-                         f", int32 yardstick {yard:.5f}") + ")")
+        cmp.update(old_new_k12(torch, dev, okern, k12c, reps=20))
+        print_old_new(cmp, ("frame_me", "mode_costs") + K6_ENTRIES + (
+            "full_search_sse", "intra_pred_all", "satd_modes"))
         for n in ("intra_pred_all", "satd_modes"):
             rs = [r for tag, r in cmp[n].items()
                   if tag.startswith("config1 batch")]
@@ -2378,6 +2546,21 @@ def main(argv=None) -> int:
                   f"{dev_str(dev_sum(r['old_device_ms'] for r in rs))} -> "
                   f"{dev_str(dev_sum(r['device_ms'] for r in rs))}; bound "
                   f"{sum(r['bound_ms'] for r in rs):.5f})")
+        k810 = old_new_k8k10(torch, dev, okern, batch_x[10], batch_x[8],
+                             reps=20)
+        print("phase 3: K8 mc_batch and K10 satd_batch against the kernels "
+              f"of {args.old_csrc}: outputs equal at every phase and tile, "
+              "8 and 10 bits; old -> new ms at 10 bits, called alike and "
+              "timed old, new, new, old (device time of the kernel alone; "
+              "cold: after an L2 flush; the public function; bound)",
+              flush=True)
+        print_old_new(k810, ("mc_batch", "satd_batch"))
+        for tag, r in k810["public"].items():
+            print(f"  public {tag}, the older package's wrapper against "
+                  "the current one, 2000-call turns, three rounds: old "
+                  + ", ".join(f"{v:.5f}" for v in r["old_ms"]) + " ms; new "
+                  + ", ".join(f"{v:.5f}" for v in r["ms"]) + " ms")
+        cmp.update(k810)
         for label, r in cmp["resources"].items():
             print(resource_line(f"{label} (old)", r))
         report["old_new"] = cmp

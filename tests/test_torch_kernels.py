@@ -277,28 +277,57 @@ def test_mesh_of_four_positions_on_one_card(cuda):
 # ---- the fourth slice: K8 mc_batch, K9 full_search_sse, K10 dist_batch,
 # K11 mode_costs ---------------------------------------------------------------
 
+# K8's phases: the 16 quarter-pel luma pairs (chip_smoke.LUMA_PHASES) and
+# chroma phases 0, 1, 16 and 31 on each axis, with a few odd ones
+K8_LUMA_PHASES = [(fx, fy) for fy in (0, 4, 8, 12) for fx in (0, 4, 8, 12)] \
+    + [(0, 3), (1, 15), (15, 4)]
+K8_CHROMA_PHASES = [(fx, fy) for fy in (0, 1, 16, 31) for fx in (0, 1, 16, 31)] \
+    + [(0, 3), (31, 8)]
+K8_SIZES = [(2, 2), (4, 4), (8, 4), (4, 8), (6, 6), (8, 8), (12, 8),
+            (16, 16), (16, 4), (4, 16), (64, 64), (128, 128)]
+
+
+def _off(t, k, device):
+    """A contiguous copy of t that starts k elements past an allocation
+    (4 k bytes off its 16-byte alignment for int32)."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=device)
+    v = buf[k:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("bd", [8, 10, 12])
 @pytest.mark.parametrize("luma", [True, False])
-def test_mc_batch_matches_plain(cuda, luma, bd):
+@pytest.mark.parametrize("w,h", K8_SIZES)
+def test_mc_batch_matches_plain(cuda, w, h, luma, bd):
+    """Every luma (chroma) phase pair at this size and bit depth, bit-exact
+    with one launch each: a batch of 37 (not a multiple of the block's
+    group), B = 1, windows that start 4 bytes off 16-byte alignment
+    (win[1:] of a flat buffer), and windows of int32 extremes whose sums
+    wrap."""
     from vvenc_tpu_torch.ops import interp as IP
-    rng = np.random.RandomState(bd + 2 * luma)
+    rng = np.random.RandomState(w * 131 + h * 7 + bd + 2 * luma)
     n = IP.NTAPS_LUMA if luma else IP.NTAPS_CHROMA
-    phases = (16 if luma else 32)
-    for (w, h) in ((8, 8), (16, 4), (4, 16), (64, 64), (128, 128)):
-        win = torch.from_numpy(rng.randint(0, 1 << bd, (9, h + n - 1,
-                                                        w + n - 1))
-                               .astype(np.int32)).to(cuda)
-        win[0] = (1 << bd) - 1
-        win[1] = 0
-        for fx, fy in ((0, 0), (phases // 2, 0), (0, 3), (1, phases - 1),
-                       (phases - 1, phases // 4)):
+    shape = (h + n - 1, w + n - 1)
+    win = torch.from_numpy(rng.randint(0, 1 << bd, (37,) + shape)
+                           .astype(np.int32)).to(cuda)
+    win[0] = (1 << bd) - 1
+    win[1] = 0
+    ext = torch.from_numpy(rng.choice(
+        np.array([-2 ** 31, 2 ** 31 - 1, -2 ** 30, 2 ** 30, -1, 0, 1],
+                 dtype=np.int64), (5,) + shape).astype(np.int32)).to(cuda)
+    cases = (win, win[:1].contiguous(), _off(win, 1, cuda), ext)
+    assert cases[2].data_ptr() % 16 == 4
+    for fx, fy in (K8_LUMA_PHASES if luma else K8_CHROMA_PHASES):
+        for x in cases:
             c0 = kernels.launches["mc_batch"]
-            got = IP.mc_batch(win, fx, fy, w, h, bd, luma)
-            want = IP.mc_batch_ref(win, fx, fy, w, h, bd, luma)
+            got = IP.mc_batch(x, fx, fy, w, h, bd, luma)
+            want = IP.mc_batch_ref(x, fx, fy, w, h, bd, luma)
             torch.cuda.synchronize()
             assert kernels.launches["mc_batch"] == c0 + 1
-            assert torch.equal(got, want), (w, h, fx, fy)
+            assert got.shape == (x.shape[0], h, w)
+            assert torch.equal(got, want), (w, h, fx, fy, x.shape[0])
 
 
 @pytest.mark.cuda
@@ -323,24 +352,97 @@ def test_full_search_matches_plain(cuda, s, R):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [1, 2, 4, 8, 16, 32, 64])
-def test_dist_batch_matches_plain(cuda, tile):
+@pytest.mark.parametrize("fx,fy", [(0, 0), (8, 0), (0, 8), (5, 11)])
+def test_mc_batch_window_beyond_shared_memory(cuda, fx, fy):
+    """A 256x256 luma block's 263x263 window (277 KB) does not fit a
+    thread block's shared memory: the generic instantiation reads it from
+    device memory, bit-exact with one launch."""
+    from vvenc_tpu_torch.ops import interp as IP
+    rng = np.random.RandomState(fx + 16 * fy)
+    win = torch.from_numpy(rng.randint(0, 1024, (3, 263, 263))
+                           .astype(np.int32)).to(cuda)
+    c0 = kernels.launches["mc_batch"]
+    got = IP.mc_batch(win, fx, fy, 256, 256, 10, True)
+    want = IP.mc_batch_ref(win, fx, fy, 256, 256, 10, True)
+    torch.cuda.synchronize()
+    assert kernels.launches["mc_batch"] == c0 + 1
+    assert torch.equal(got, want)
+
+
+# K10's cases: (name, shape, value range); every tile that divides H and W
+K10_CASES = [("13x64x64", (13, 64, 64), 0, 1024),
+             ("5x64x128 wrap", (5, 64, 128), -2 ** 30, 2 ** 30),  # sums wrap
+             ("7x192x320", (7, 3 * 64, 5 * 64), 0, 1024),          # 15 tiles
+             ("7x24x8", (7, 24, 8), 0, 1024),            # 3 tiles at tile 8
+             ("1x64x64", (1, 64, 64), 0, 4096),
+             ("37x16x16", (37, 16, 16), -2 ** 30, 2 ** 30)]
+K10_PARAMS = [(tile, name) for tile in (1, 2, 4, 8, 16, 32, 64)
+              for name, shape, _, _ in K10_CASES
+              if shape[1] % tile == 0 and shape[2] % tile == 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,case", K10_PARAMS)
+def test_dist_batch_matches_plain(cuda, tile, case):
+    """satd at this tile (sse and sad beside) bit-exact with one launch
+    each, on the case's inputs and on copies 4 bytes off 16-byte
+    alignment."""
     from vvenc_tpu_torch.ops import rdcost as R
-    rng = np.random.RandomState(tile)
-    for shape, lo, hi in (((13, 64, 64), 0, 1024),
-                          ((5, 64, 128), -2 ** 30, 2 ** 30),   # sums wrap
-                          ((7, 3 * 64, 5 * 64), 0, 1024)):     # 15 tiles
-        a, b = (torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int32))
-                .to(cuda) for _ in range(2))
+    _, shape, lo, hi = next(c for c in K10_CASES if c[0] == case)
+    rng = np.random.RandomState(tile + 7 * shape[0])
+    a, b = (torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int32))
+            .to(cuda) for _ in range(2))
+    for x, y in ((a, b), (_off(a, 1, cuda), _off(b, 3, cuda))):
         for name, kern, plain, args in (
                 ("satd_batch", R.satd_batch, R.satd_batch_ref, (tile,)),
                 ("sad_batch", R.sad_batch, R.sad_batch_ref, ()),
                 ("sse_batch", R.sse_batch, R.sse_batch_ref, ())):
             c0 = kernels.launches[name]
-            got, want = kern(a, b, *args), plain(a, b, *args)
+            got, want = kern(x, y, *args), plain(a, b, *args)
             torch.cuda.synchronize()
             assert kernels.launches[name] == c0 + 1
-            assert torch.equal(got, want), (name, shape)
+            assert torch.equal(got, want), (name, shape, x.data_ptr() % 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1, 2, 4, 8, 16, 32, 64])
+def test_satd_batch_writes_every_element_of_an_uninitialised_output(cuda,
+                                                                    tile):
+    """vt_satd_batch stores every element once and reads nothing of out:
+    an output full of garbage comes back equal to the plain version."""
+    from vvenc_tpu_torch.ops import rdcost as R
+    rng = np.random.RandomState(tile)
+    for shape in ((29, 64, 64), (3, 128, 64)):
+        a, b = (torch.from_numpy(rng.randint(-512, 512, shape)
+                                 .astype(np.int32)).to(cuda)
+                for _ in range(2))
+        out = torch.full((shape[0],), -123456789, dtype=torch.int32,
+                         device=cuda)
+        R._launch("satd_batch", "vt_satd_batch", a, b, out, tile)
+        torch.cuda.synchronize()
+        assert torch.equal(out, R.satd_batch_ref(a, b, tile))
+
+
+@pytest.mark.cuda
+def test_k8_k10_resource_queries(cuda):
+    """vt_mc_batch_attrs for every kind at the H.266 sizes (and the generic
+    widths), vt_dist_batch_attrs for every tile: no stack, spill or local
+    memory, at least one resident block an SM."""
+    sizes = [(n, w, h) for n in (8, 4) for w, h in K8_SIZES]
+    for n, w, h in sizes:
+        for kind in range(4):
+            r = kernels.resources("mc_batch", "vt_mc_batch_attrs", w, h, n,
+                                  kind)
+            assert r["local_bytes"] == 0, (n, w, h, kind, r)
+            assert r["blocks_per_sm"] >= 1, (n, w, h, kind, r)
+    for tile in (1, 2, 4, 8, 16, 32, 64):
+        for H, W in ((16, 16), (64, 64), (64, 128)):
+            if H % tile or W % tile:
+                continue
+            r = kernels.resources("dist_batch", "vt_dist_batch_attrs", tile,
+                                  H, W)
+            assert r["local_bytes"] == 0, (tile, H, W, r)
+            assert r["blocks_per_sm"] >= 1, (tile, H, W, r)
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ windows at one fractional phase; the encoder groups blocks by phase):
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -180,32 +181,45 @@ def bcw_average_np(a: np.ndarray, b: np.ndarray, bcw_idx: int,
 # batched path: one fractional phase, a batch of windows
 # ---------------------------------------------------------------------------
 
-def _mc_plan(windows, frac_x, frac_y, w, h, bit_depth, is_luma):
-    """(taps table, ntaps, half, stage) of one mc_batch call after checking
-    its arguments; stage(frac, is_first, is_last) -> (taps, shift, offset)
-    with the reference's shift/offset scheme."""
+def _mc_stage(frac, is_first, is_last, bit_depth, is_luma):
+    """(taps, shift, offset) of one filter stage at phase frac with the
+    reference's shift/offset scheme."""
     taps_tbl = LUMA_FILTER if is_luma else np.asarray(CHROMA_FILTER)
+    head_room = IF_INTERNAL_PREC - bit_depth
+    shift = IF_FILTER_PREC
+    if is_last:
+        shift += 0 if is_first else head_room
+        offset = (1 << (shift - 1)) + \
+            (0 if is_first else IF_INTERNAL_OFFS << IF_FILTER_PREC)
+    else:
+        shift -= head_room if is_first else 0
+        offset = (-IF_INTERNAL_OFFS << shift) if is_first else 0
+    return [int(t) for t in taps_tbl[frac]], shift, offset
+
+
+def _mc_check(windows, frac_x, frac_y, w, h, is_luma) -> int:
+    """ntaps of one mc_batch call after checking its arguments."""
+    nphases = len(LUMA_FILTER) if is_luma else len(CHROMA_FILTER)
     ntaps = NTAPS_LUMA if is_luma else NTAPS_CHROMA
     for f in (frac_x, frac_y):
-        if not 0 <= f < len(taps_tbl):
+        if not 0 <= f < nphases:
             raise IndexError(f"mc_batch: phase {f} outside the "
-                             f"{len(taps_tbl)}-phase filter table")
+                             f"{nphases}-phase filter table")
     if windows.dim() != 3 or tuple(windows.shape[1:]) != (h + ntaps - 1,
                                                           w + ntaps - 1):
         raise ValueError(f"windows {tuple(windows.shape)}: need [B, "
                          f"{h + ntaps - 1}, {w + ntaps - 1}]")
-    head_room = IF_INTERNAL_PREC - bit_depth
+    return ntaps
+
+
+def _mc_plan(windows, frac_x, frac_y, w, h, bit_depth, is_luma):
+    """(ntaps, half, stage) of one mc_batch call after checking its
+    arguments; stage(frac, is_first, is_last) -> (taps, shift, offset)
+    with the reference's shift/offset scheme."""
+    ntaps = _mc_check(windows, frac_x, frac_y, w, h, is_luma)
 
     def stage(frac, is_first, is_last):
-        shift = IF_FILTER_PREC
-        if is_last:
-            shift += 0 if is_first else head_room
-            offset = (1 << (shift - 1)) + \
-                (0 if is_first else IF_INTERNAL_OFFS << IF_FILTER_PREC)
-        else:
-            shift -= head_room if is_first else 0
-            offset = (-IF_INTERNAL_OFFS << shift) if is_first else 0
-        return [int(t) for t in taps_tbl[frac]], shift, offset
+        return _mc_stage(frac, is_first, is_last, bit_depth, is_luma)
     return ntaps, ntaps // 2 - 1, stage
 
 
@@ -242,6 +256,23 @@ _K8_ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
             + [ctypes.c_int] * 25 + [ctypes.c_void_p])
 
 
+@lru_cache(maxsize=None)
+def _k8_args(frac_x: int, frac_y: int, bit_depth: int,
+             is_luma: bool) -> tuple:
+    """The 23 ints vt_mc_batch takes after (B, w, h) for one phase:
+    ntaps, kind (0 copy, 1 horizontal only, 2 vertical only, 3 both),
+    the 8 horizontal and 8 vertical taps (zero past ntaps), sh1, off1,
+    sh2, off2 and the clip's maximum.  They depend only on the phase, the
+    bit depth and the plane, so they are computed once."""
+    ntaps = NTAPS_LUMA if is_luma else NTAPS_CHROMA
+    kind = (frac_x != 0) + 2 * (frac_y != 0)
+    tx, s1, o1 = _mc_stage(frac_x, True, kind != 3, bit_depth, is_luma)
+    ty, s2, o2 = _mc_stage(frac_y, kind != 3, True, bit_depth, is_luma)
+    pad = [0] * (8 - ntaps)
+    return (ntaps, kind, *(tx + pad), *(ty + pad), s1, o1, s2, o2,
+            (1 << bit_depth) - 1)
+
+
 def mc_batch(windows: torch.Tensor, frac_x: int, frac_y: int, w: int,
              h: int, bit_depth: int = 10, is_luma: bool = True) -> torch.Tensor:
     """MC filter a batch of pre-gathered windows at one fractional phase.
@@ -257,20 +288,14 @@ def mc_batch(windows: torch.Tensor, frac_x: int, frac_y: int, w: int,
     if dev.type != "cuda":
         raise ValueError(f"mc_batch: no kernel for {dev}")
     kernels.require(windows, "windows", torch.int32, 3, dev)
-    ntaps, _, stage = _mc_plan(windows, frac_x, frac_y, w, h, bit_depth,
-                               is_luma)
+    _mc_check(windows, frac_x, frac_y, w, h, is_luma)
+    args = _k8_args(frac_x, frac_y, bit_depth, is_luma)
     B = windows.shape[0]
     out = torch.empty((B, h, w), dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    # kind: 0 copy, 1 horizontal only, 2 vertical only, 3 both
-    kind = (frac_x != 0) + 2 * (frac_y != 0)
-    tx, s1, o1 = stage(frac_x, True, kind != 3)
-    ty, s2, o2 = stage(frac_y, kind != 3, True)
-    pad = [0] * (8 - ntaps)
     fn = kernels.function("mc_batch", "vt_mc_batch", _K8_ARGS)
-    err = fn(windows.data_ptr(), out.data_ptr(), B, w, h, ntaps, kind,
-             *(tx + pad), *(ty + pad), s1, o1, s2, o2, (1 << bit_depth) - 1,
+    err = fn(windows.data_ptr(), out.data_ptr(), B, w, h, *args,
              kernels.stream_ptr(out))
     kernels.check("mc_batch", err)
     kernels.count("mc_batch")

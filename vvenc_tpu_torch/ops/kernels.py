@@ -61,6 +61,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launches = dict.fromkeys(ENTRIES, 0)
 _LIBS: dict = {}
+_FUNCTIONS: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -129,7 +130,13 @@ def build(names=SOURCES) -> dict:
 
 def function(name: str, symbol: str, argtypes):
     """ctypes function `symbol` of kernel library `name` (a source; built
-    and loaded on first use); returns cudaError_t as an int."""
+    and loaded on first use); returns cudaError_t as an int.  Looked up
+    once for each (name, symbol, argtypes) and kept, so that a wrapper
+    pays a dictionary lookup a launch."""
+    key = (name, symbol, tuple(argtypes))
+    fn = _FUNCTIONS.get(key)
+    if fn is not None:
+        return fn
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -137,9 +144,10 @@ def function(name: str, symbol: str, argtypes):
             lib = _LIBS[name] = ctypes.CDLL(str(so_path(name)))
             lib.vt_error_string.argtypes = [ctypes.c_int]
             lib.vt_error_string.restype = ctypes.c_char_p
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        fn = lib[symbol]        # an object of its own for these argtypes
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[key] = fn
     return fn
 
 

@@ -199,5 +199,6 @@ def satd_batch(a: torch.Tensor, b: torch.Tensor, tile: int = 8) -> torch.Tensor:
     _check_pair(a, b, tile)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return satd_batch_ref(a, b, tile)
-    out = torch.zeros((a.shape[0],), dtype=torch.int32, device=a.device)
+    # the kernel stores every element once: no zero-fill
+    out = torch.empty((a.shape[0],), dtype=torch.int32, device=a.device)
     return _launch("satd_batch", "vt_satd_batch", a, b, out, tile)
