@@ -53,8 +53,9 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      on the residuals of 1920x1080 pictures (source minus search_step's
      chosen prediction) for every square class 4..64 plus 8x4 and 16x8,
      at 8 and 10 bits, QPs 22, 37, 51 and both slice types; timed per
-     class at 10 bits, QP 37, intra; K6 also bit-exact and timed at
-     search_step's shape (4 blocks of 16x16).
+     class at 10 bits, QP 37, intra, each with the device time of a
+     call (call_device_ms; at 16x16 also cold); K6 also bit-exact and
+     timed at search_step's shape (4 blocks of 16x16).
    - K8-K11 through their public functions at 1080p shapes, each first
      in a path run (the full-width calls at 10 bits, the launch counts
      set to 0 just before and read just after), then against its plain
@@ -64,11 +65,13 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      full_search_sse_batch integer SSEs and argmins equal on the 1080p
      16x16 grid at R = 16 (B = 8,040), the 8x8 grid at R = 8 (B =
      32,400) and the 64x64 grid at R = 16 (B = 480), each timed; K10
-     sse/sad/satd_batch bit-exact at [8040, 16, 16] (satd tiles 4, 8
-     and 16) and [480, 64, 64] (tiles 4, 8 and 64); K8 timed per kind
-     (copy, horizontal, vertical, both) at luma 16x16 and chroma 8x8 and
-     at each luma phase, K10 satd per tile (the device time of a call
-     beside each); K11 mode_costs_batch bit-exact on
+     sse/sad bit-exact on the 1080p 4x4, 8x8, 16x16 and 64x64 grids
+     (B = 129,600, 32,400, 8,040 and 480) and satd at [8040, 16, 16]
+     (tiles 4, 8 and 16) and [480, 64, 64] (tiles 4, 8 and 64); K8 timed
+     per kind (copy, horizontal, vertical, both) at luma 16x16 and
+     chroma 8x8 and at each luma phase, K10 sse and sad per grid and
+     satd per tile (the device time of a call beside each, warm and
+     cold); K11 mode_costs_batch bit-exact on
      the 1080p 16x16 and 32x32 grids and the 416x240 4x4, 8x8 and 64x64
      grids (8-bit: 416x240, every size), build_ref_mains (host) timed
      apart.  Times at 10 bits.
@@ -88,6 +91,13 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      --preset faster) and config 3 cut to 3 frames (1920x1080, QP 32,
      --preset medium --gop-size 2 --intra-period 0 --qpa 1 --wpp
      --threads 2), both with --set me_mode=device: K5 must launch;
+   - the tool twins (vvenc_tpu_torch.tools) on config 1's clip:
+     calibrate_plan's encodes (a process each, all six at once, --device
+     cuda) of the variants exact and plan-default at QPs 32, 37 and 42,
+     every summary line parsed, both curves and their bd_delta printed;
+     bdrate's
+     run_ours at QP 37 bit-exact to config 1's CLI stream above; bdrate
+     without a reference encoder must raise naming the path;
    - the library entry points: VVEncImpl streaming config 1's options
      (the fused SATD and K3's reference entry must launch in its
      window) and config 2's with
@@ -113,18 +123,20 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
    With --old-csrc DIR (an older checkout's vvenc_tpu_torch/csrc, for
    example the parent commit's, unpacked), phase 3 also imports the
    package that holds DIR under another name (old_package), builds its
-   K1, K2, K5, K6, K8, K9, K10 and K11 with its own kernels module and
-   sets them against the current ones, called alike (old_new_case):
+   K1, K2 and K5-K11 with its own kernels module and sets them against
+   the current ones, called alike (old_new_case):
    outputs equal at every K5, K11 and K9 shape above (K9 also on its
    integer route: a 12-bit checkerboard at 16x16 R = 16 and 6x6 blocks
    at R = 8), every K6 class and search_step's shape,
    every K1 / K2 shape above, every K8 phase and K10 satd tile above (8
-   and 10 bits), times taken in turns (old, new, new, old; 2000 calls a
-   turn for K1, K2 and K6 at search_step's shape, three rounds of turns
-   averaged for K1 and K2, and for the public K8 and K10 satd calls
-   against the older package's own wrappers), device times (one phase
-   of each K8 kind and satd tile 8 also after an L2 flush), the old
-   kernels' resources.
+   and 10 bits), K10 sse and sad on the four grids above (8 and 10
+   bits), K7 on every K6 class (10 bits, QP 37; timed at 16x16), times
+   taken in turns (old, new, new, old; 2000 calls a turn for K1, K2 and
+   K6 at search_step's shape and for K7 and K10 sse / sad, three rounds
+   of turns averaged for K1 and K2, and for the public K7, K8 and K10
+   calls against the older package's own wrappers), device times (one
+   phase of each K8 kind, satd tile 8, every sse / sad grid and K7 at
+   16x16 also after an L2 flush), the old kernels' resources.
    K6's and K9's bounds count the work as each kernel computes it
    (tr_bound_ms, fs_bound_ms), their int32 count beside as the
    yardstick.
@@ -215,23 +227,9 @@ K6_ENTRIES = TR_KERNELS[:2]
 MESH_KERNELS = ("intra_pred_all", "satd_modes") + PLAN_KERNELS + TR_KERNELS
 # K6/K7's classes: every square class and two rectangular ones
 TR_CLASSES = ((4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (8, 4), (16, 8))
-# the __global__ function of each K6/K7 entry, as the profiler names it
-TR_FUNCTIONS = {"fwd_transform_batch": "tr_kernel<true,",
-                "inv_transform_batch": "tr_kernel<false,",
-                "quant_batch": "::quant_kernel(",
-                "dequant_batch": "::dequant_kernel("}
 # K8-K11: the public functions that only their own callers reach
 BATCH_KERNELS = ("mc_batch", "full_search_sse", "sse_batch", "sad_batch",
                  "satd_batch", "mode_costs")
-# the __global__ function of each K8-K11 entry at its timed shape (K8
-# luma 16x16 at phase (8, 8), kind 3; K10 satd tile 8 on aligned inputs),
-# matched with the spaces taken out (kernel_time)
-BATCH_FUNCTIONS = {"mc_batch": "mc_kernel<8, 3, 16, true>",
-                   "full_search_sse": "fs_kernel<",
-                   "sse_batch": "dist_kernel<true>",
-                   "sad_batch": "dist_kernel<false>",
-                   "satd_batch": "satd_warp_kernel<8, true>",
-                   "mode_costs": "mode_costs_kernel<8, true>"}
 # K9's timed shapes on 1080p grids: (block side, R)
 FS_SHAPES = ((16, 16), (8, 8), (64, 16))
 # K8's phases: the 16 quarter-pel luma phases, a few 1/32 chroma ones
@@ -243,24 +241,9 @@ K8_KINDS = {"luma": ((0, 0), (8, 0), (0, 8), (8, 8)),
             "chroma": ((0, 0), (16, 0), (0, 8), (5, 27))}
 # K10 satd's tiles on the 1080p 16x16 and 64x64 grids
 SATD_TILES = {"16x16": (4, 8, 16), "64x64": (4, 8, 64)}
-
-
-def make_clip(path: str, w: int, h: int, frames: int) -> None:
-    """Smooth 8-bit 4:2:0 test clip (the repository benchmark's clip)."""
-    rng = np.random.RandomState(7)
-    import scipy.ndimage as ndi
-    base = ndi.gaussian_filter(
-        rng.randint(0, 255, (h + 4 * frames, w + 4 * frames)
-                    ).astype(np.float32), 3)
-    base = (base - base.min()) / (base.max() - base.min()) * 200 + 20
-    with open(path, "wb") as f:
-        for i in range(frames):
-            y = base[i:i + h, 2 * i:2 * i + w].astype(np.uint8)
-            u = (y[::2, ::2] // 2 + 60).astype(np.uint8)
-            v = (128 - y[::2, ::2] // 3).astype(np.uint8)
-            f.write(y.tobytes())
-            f.write(u.tobytes())
-            f.write(v.tobytes())
+# K10 sse's and sad's 1080p luma grids (block sides; B = 129,600, 32,400,
+# 8,040 and 480)
+DIST_GRIDS = (4, 8, 16, 64)
 
 
 def luma_frames(w: int, h: int, n: int, bit_depth: int, seed: int):
@@ -297,6 +280,12 @@ def card_line() -> str:
     return out[0]
 
 
+def stamp(t0: float, label: str) -> None:
+    """Prints how far into the run (seconds since t0) `label` ended."""
+    print(f"  ({label} done {time.time() - t0:.1f} s into the run)",
+          flush=True)
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
@@ -314,33 +303,6 @@ def cuda_ms(torch, fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
-
-
-def device_ms(torch, calls, reps: int) -> dict:
-    """Mean device milliseconds per launch of each CUDA kernel the calls
-    launch, by kernel name (torch.profiler's CUDA activity, after a
-    warm-up call each); empty when the profiler records no device
-    time."""
-    from torch.profiler import ProfilerActivity, profile
-    for fn in calls:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in calls:
-            for _ in range(reps):
-                fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / e.count / 1e3
-            for e in prof.key_averages() if e.self_device_time_total > 0}
-
-
-def kernel_time(prof: dict, fname: str):
-    """The device ms of the kernel whose name holds fname in a device_ms
-    result, spaces ignored; None (printed as not measured) when the
-    profiler recorded no such kernel."""
-    key = fname.replace(" ", "")
-    return next((v for k, v in prof.items() if key in k.replace(" ", "")),
-                None)
 
 
 def work(name: str, B: int, s: int, k: int) -> tuple:
@@ -539,6 +501,14 @@ def dist_work(name: str, B: int, H: int, W: int, tile: int = 8) -> tuple:
     ops = 3 * n if name != "satd_batch" else \
         n * (3 + 2 * (tile.bit_length() - 1))
     return n * 8 + B * 4, ops
+
+
+def dist_pair(x: dict, s: int) -> tuple:
+    """The two [B, s, s] inputs of K10 on the 1080p s x s grid among
+    run_batch_ops' inputs x."""
+    if s == 16:
+        return x["blocks"], x["b16"]
+    return x[f"a{s}"], x[f"b{s}"]
 
 
 def mode_work(B: int, s: int) -> tuple:
@@ -967,9 +937,10 @@ def run_tr(torch, dev, pics, reps, plain_reps):
     residuals of one 1080p picture per bit depth, every class of
     TR_CLASSES, QPs 22/37/51, both slice types; each entry timed per
     class at 10 bits, QP 37, intra: CUDA events around back-to-back
-    wrapper calls ("ms") and the kernel's own device time from the
-    profiler ("device_ms", None where it records none).  Returns the
-    per-class records."""
+    wrapper calls ("ms") and the device time of a call
+    (call_device_ms: "device_ms", None where records were lost; at
+    16x16 also cold, "cold_device_ms").  Returns the per-class
+    records."""
     from vvenc_tpu_torch.ops import transforms as T
     recs = []
     for bd, pic in pics.items():
@@ -1015,12 +986,11 @@ def run_tr(torch, dev, pics, reps, plain_reps):
                 rec["plain_ms"][n] = cuda_ms(torch, lambda: plain(*a),
                                              plain_reps)
                 rec["work"][n] = tr_work(n, B, w, h)
-            prof = device_ms(torch, [
-                (lambda n=n: getattr(T, n)(*args[n])) for n in TR_KERNELS],
-                reps)
-            for n, fname in TR_FUNCTIONS.items():
-                rec["device_ms"][n] = next(
-                    (v for k, v in prof.items() if fname in k), None)
+                rec["device_ms"][n] = call_device_ms(
+                    torch, lambda: kern(*a), reps)
+                if (w, h) == (16, 16):
+                    rec.setdefault("cold_device_ms", {})[n] = call_device_ms(
+                        torch, lambda: kern(*a), reps, cold=True)
             recs.append(rec)
             if (w, h) == (16, 16):
                 recs.append(tr_search_step(torch, resi, ck))
@@ -1044,11 +1014,7 @@ def tr_search_step(torch, resi, ck):
         rec["ms"][n] = cuda_ms(torch, lambda: kern(*a), 200)
         rec["plain_ms"][n] = cuda_ms(torch, lambda: plain(*a), 20)
         rec["work"][n] = tr_work(n, B, s, s)
-    prof = device_ms(torch, [lambda n=n: getattr(T, n)(*args[n])
-                             for n in args], 200)
-    for n in args:
-        rec["device_ms"][n] = next((v for k, v in prof.items()
-                                    if TR_FUNCTIONS[n] in k), None)
+        rec["device_ms"][n] = call_device_ms(torch, lambda: kern(*a), 200)
     return rec
 
 
@@ -1120,6 +1086,10 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
             "blocks": grid_windows(torch, dev, p1, 16, 16, 0, 0),
             "areas": grid_windows(torch, dev, p2, 16, 16 + 2 * R, -R, -R),
             "b16": grid_windows(torch, dev, p2, 16, 16, 0, 0),
+            "a4": grid_windows(torch, dev, p1, 4, 4, 0, 0),
+            "b4": grid_windows(torch, dev, p2, 4, 4, 0, 0),
+            "a8": grid_windows(torch, dev, p1, 8, 8, 0, 0),
+            "b8": grid_windows(torch, dev, p2, 8, 8, 0, 0),
             "a64": grid_windows(torch, dev, p1, 64, 64, 0, 0),
             "b64": grid_windows(torch, dev, p2, 64, 64, 0, 0),
             # K9's shapes: every block of the s x s grid, its +-R area
@@ -1138,12 +1108,13 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
 
     def dist_calls(x):
         out = []
-        for tag, a, b in (("16x16", x["blocks"], x["b16"]),
-                          ("64x64", x["a64"], x["b64"])):
+        for s in DIST_GRIDS:
+            a, b = dist_pair(x, s)
+            tag = f"{s}x{s}"
             out += [(f"sse {tag}", lambda a=a, b=b: RD.sse_batch(a, b)),
                     (f"sad {tag}", lambda a=a, b=b: RD.sad_batch(a, b))]
             out += [(f"satd {tag} tile {t}", lambda a=a, b=b, t=t:
-                     RD.satd_batch(a, b, t)) for t in SATD_TILES[tag]]
+                     RD.satd_batch(a, b, t)) for t in SATD_TILES.get(tag, ())]
         return out
 
     x10 = inputs(10)
@@ -1191,8 +1162,7 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
                 fail(f"K9 argmins != plain at {fs}x{fs}, R={fr}, {bd} bits")
             del costs, ref
         for tag, call in dist_calls(x):
-            a, b = (x["blocks"], x["b16"]) if "16x16" in tag else \
-                (x["a64"], x["b64"])
+            a, b = dist_pair(x, int(tag.split()[1].split("x")[0]))
             kind = tag.split()[0]
             want = {"sse": lambda: RD.sse_batch_ref(a, b),
                     "sad": lambda: RD.sad_batch_ref(a, b),
@@ -1287,9 +1257,19 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
         call_device_ms(torch, lambda fx=fx, fy=fy: IP.mc_batch(
             x10["luma"], fx, fy, 16, 16, 10, True), reps)
         for fx, fy in LUMA_PHASES]
+    # K10 sse and sad on every grid of DIST_GRIDS, warm and cold
+    for s in DIST_GRIDS:
+        a, b = dist_pair(x10, s)
+        for n, fn in (("sse_batch", RD.sse_batch),
+                      ("sad_batch", RD.sad_batch)):
+            rec["per_call"][f"{n} {s}x{s}"] = {
+                "B": a.shape[0], "work": dist_work(n, a.shape[0], s, s),
+                "ms": cuda_ms(torch, lambda: fn(a, b), reps),
+                "device_ms": call_device_ms(torch, lambda: fn(a, b), reps),
+                "cold_device_ms": call_device_ms(torch, lambda: fn(a, b), reps,
+                                                 cold=True)}
     for tag, tiles in SATD_TILES.items():
-        a, b = (x10["blocks"], x10["b16"]) if tag == "16x16" else \
-            (x10["a64"], x10["b64"])
+        a, b = dist_pair(x10, int(tag[:2]))
         for t in tiles:
             nb_, H_, W_ = a.shape
             rec["per_call"][f"satd_batch {tag} tile {t}"] = {
@@ -1299,11 +1279,10 @@ def run_batch_ops(torch, dev, kernels, pics, small, mi10, ref_secs, reps,
                     torch, lambda: RD.satd_batch(a, b, t), reps),
                 "cold_device_ms": call_device_ms(
                     torch, lambda: RD.satd_batch(a, b, t), reps, cold=True)}
-    prof = device_ms(torch, [
-        lambda: IP.mc_batch(x10["luma"], 8, 8, 16, 16, 10, True)]
-        + [timed[n][0] for n in timed], reps)
-    for n, fname in BATCH_FUNCTIONS.items():
-        rec["device_ms"][n] = kernel_time(prof, fname)
+    rec["device_ms"]["mc_batch"] = call_device_ms(
+        torch, lambda: IP.mc_batch(x10["luma"], 8, 8, 16, 16, 10, True), reps)
+    for n in timed:
+        rec["device_ms"][n] = call_device_ms(torch, timed[n][0], reps)
     rec["B"] = B16
     return rec, x10["fs"], {10: x10, 8: x8}
 
@@ -1620,6 +1599,69 @@ def encode_phase(torch, kernels, DEV, tag, clip, w, h, frames, qp, preset,
                  "device_share": share, "launches": launches}
 
 
+def tools_phase(clip, w, h, n, tmp) -> dict:
+    """The tool twins on the card, on config 1's clip: the calibrate_plan
+    twin's encodes (each a process of its own, all at once) of the
+    variants "exact" (device_rd=off) and "plan-default" at its QPs, every
+    summary line parsed, the rates falling as the QP rises, both curves
+    and bd_delta printed; the bdrate twin's run_ours at QP 37, whose
+    stream must be
+    config 1's CLI stream of phase 4 (tmp/config1.266) bit for bit; and
+    the bdrate twin without a reference encoder, which must raise naming
+    the path it looked for.  Returns the record."""
+    from concurrent.futures import ThreadPoolExecutor
+    from vvenc_tpu_torch.tools import bdrate as TB
+    from vvenc_tpu_torch.tools import calibrate_plan as TC
+    t0 = time.time()
+    names = ("exact", "plan-default")
+    # the six encodes at once, a process each
+    with ThreadPoolExecutor(len(names) * len(TC.QPS)) as ex:
+        futs = {(name, qp): ex.submit(
+            TC.encode, clip, w, h, n, qp, TC.VARIANTS[name],
+            "off" if name == "exact" else "on", "cuda")
+            for name in names for qp in TC.QPS}
+        curves = {name: [futs[name, qp].result() for qp in TC.QPS]
+                  for name in names}
+    for name, pts in curves.items():
+        kbps = [p[0] for p in pts]
+        if not all(np.isfinite(v) for p in pts for v in p) or not all(
+                a > b > 0 for a, b in zip(kbps, kbps[1:])):
+            fail(f"calibrate_plan {name}: points {pts} at QPs {TC.QPS}")
+    delta = TC.bd_delta(curves["exact"], curves["plan-default"])
+    secs = time.time() - t0
+    out = os.path.join(tmp, "bdrate")
+    os.makedirs(out, exist_ok=True)
+    bits, rec = TB.run_ours(clip, w, h, n, 37, "faster", 1, 0, out, "cuda")
+    want = os.path.getsize(os.path.join(tmp, "config1.266")) * 8
+    if bits != want:
+        fail(f"bdrate run_ours QP 37: {bits} bits, config 1's CLI stream "
+             f"{want}")
+    src10 = [tuple(p.astype(np.uint16) << 2 for p in f)
+             for f in TB.read_yuv8(clip, w, h, n)]
+    psnr = TB.psnr_yuv(src10, rec, 10)
+    missing = os.path.join(tmp, "no_reference", "vvencFFapp")
+    try:
+        TB.main(["--clip", clip, "--size", f"{w}x{h}", "--frames", str(n),
+                 "--qps", "37", "--ref-bin", missing])
+    except FileNotFoundError as e:
+        if missing not in str(e):
+            fail(f"bdrate without a reference encoder: {e}")
+        refusal = str(e)
+    else:
+        fail("bdrate ran without a reference encoder")
+    print(f"phase 4: tools: calibrate_plan twin on config 1's clip, "
+          f"{len(curves) * len(TC.QPS)} encodes on cuda (at once) in "
+          f"{secs:.1f} s: "
+          + "; ".join(f"{k} {[(round(b, 2), round(p, 3)) for b, p in v]}"
+                      for k, v in curves.items())
+          + f" (kbps, Y dB at QPs {TC.QPS}); bd_delta of plan-default "
+          f"against exact {delta:+.3f} %; bdrate twin run_ours QP 37: "
+          f"{bits} bits (config 1's stream), PSNR-YUV {psnr:.4f} dB; "
+          f"without a reference encoder: {refusal}", flush=True)
+    return {"curves": curves, "bd_delta": delta, "seconds": secs,
+            "run_ours_bits": bits, "run_ours_psnr_yuv": psnr}
+
+
 def compare_plans(sizes, W, H, lmbdas, kern, plain):
     """Plan tables from the kernels' and the plain versions' modes/costs:
     equal, or a flip at a near-tie.  Returns the number of flips."""
@@ -1710,7 +1752,8 @@ def encode(torch, tag, clip, w, h, frames, qp, preset, extra, plan=False):
 # the redesigned kernels that --old-csrc sets against an older build
 # (their C entries kept their signatures)
 OLD_SOURCES = ("frame_me", "mode_costs", "transform_batch", "full_search",
-               "intra_pred_all", "satd_modes", "mc_batch", "dist_batch")
+               "intra_pred_all", "satd_modes", "mc_batch", "dist_batch",
+               "quant_batch")
 # the name the older checkout's package is imported under
 OLD_PACKAGE = "old_vvenc_tpu_torch"
 
@@ -1761,6 +1804,18 @@ def dev_sum(vs):
     return None if None in vs else sum(vs)
 
 
+def profiled(torch, call, reps: int) -> dict:
+    """{kernel name: (record count, device microseconds)} of reps runs of
+    call() in one torch.profiler session (CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
 def call_device_ms(torch, fn, reps: int, cold: bool = False):
     """Device milliseconds per fn() call from reps calls (torch.profiler's
     CUDA activity, after a warm-up call): for each kernel the profiler
@@ -1768,53 +1823,53 @@ def call_device_ms(torch, fn, reps: int, cold: bool = False):
     times its mean time a record, summed.  The profiler on the H100 has
     kept one record fewer than there were launches of each kernel in a
     session (reps - 1 of reps), so a count may fall one short of k *
-    reps; a count further off, or k = 0, means records were lost: the
-    kernel is named with its count and the time is None (printed as not
-    measured), as it is when no device time is recorded.  With cold,
-    a read of twice the card's L2 cache (a reduction of its own, left
-    out) precedes each call, so that fn reads its inputs from device
-    memory; a read, not a write, so that no dirty line is left for fn's
-    misses to write back (after a write, the cold times held about the
-    inputs' bytes again)."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CUDA]
-    skip = set()
+    reps; a count further off, k = 0 or no record at all means records
+    were lost.  The session is then taken once more; a second loss
+    prints each kernel with its record count (or that none was
+    recorded) and gives None (printed as not measured).  With cold, a
+    read of twice the card's L2 cache (a reduction of its own, its
+    kernels learnt from a session of their own and left out) precedes
+    each call, so that fn reads its inputs from device memory; a read,
+    not a write, so that no dirty line is left for fn's misses to write
+    back (after a write, the cold times held about the inputs' bytes
+    again)."""
+    skip, call = set(), fn
     if cold:
         l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
                      50 << 20)
         flush = torch.zeros(2 * l2, dtype=torch.uint8, device="cuda")
-        with profile(activities=acts) as prof:
-            for _ in range(3):
-                flush.sum(dtype=torch.int32)
-            torch.cuda.synchronize()
-        skip = {e.key for e in prof.key_averages()
-                if e.self_device_time_total > 0}
-        if not skip:
+
+        def call():
+            flush.sum(dtype=torch.int32)
+            fn()
+        for _ in range(2):
+            skip = set(profiled(torch, lambda: flush.sum(dtype=torch.int32),
+                                3))
+            if skip:
+                break
+        else:
+            print("  device time not measured: 3 calls of the L2 flush "
+                  "recorded no device time", flush=True)
             return None
     fn()
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        for _ in range(reps):
-            if cold:
-                flush.sum(dtype=torch.int32)
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.self_device_time_total > 0 and e.key not in skip]
-    if not evs:
-        return None
-    total, odd = 0.0, []
-    for e in evs:
-        k = round(e.count / reps)
-        if k < 1 or abs(e.count - k * reps) > 1:
-            odd.append(f"{e.key[:60]} x{e.count}")
-        else:
-            total += k * e.self_device_time_total / e.count
-    if odd:
-        print(f"  device time not measured: {reps} calls recorded "
-              + "; ".join(odd), flush=True)
-        return None
-    return total / 1e3
+    for attempt in range(2):
+        recs = {k: v for k, v in profiled(torch, call, reps).items()
+                if k not in skip}
+        total, odd = 0.0, []
+        for key, (count, us) in recs.items():
+            k = round(count / reps)
+            if k < 1 or abs(count - k * reps) > 1:
+                odd.append(f"{key[:60]} x{count}")
+            else:
+                total += k * us / count
+        if recs and not odd:
+            return total / 1e3
+        print("  device time " + ("not measured" if attempt else
+                                  "lost, timed again") + f": {reps} calls "
+              "recorded " + ("; ".join(odd) if odd else "no device time"),
+              flush=True)
+    return None
 
 
 def in_turns(torch, old, new, reps) -> tuple:
@@ -2137,6 +2192,97 @@ def old_new_k8k10(torch, dev, okern, x10, x8, reps) -> dict:
     return rec
 
 
+def old_new_k7k10(torch, dev, okern, x10, x8, k6_cases, reps) -> dict:
+    """K7 (quant, dequant) and K10's sse and sad entries against the older
+    package's kernels (okern) through old_new_case with the wrappers'
+    arguments: K10 on every grid of DIST_GRIDS at 8 and 10 bits (outputs
+    equal), timed at 10 bits, warm and cold; K7 at 10 bits, QP 37, intra,
+    on every class of k6_cases' residuals' coefficients (quant) and their
+    levels (dequant), outputs equal, timed at 16x16, warm and cold.  The
+    calls are host-bound: 2000 calls a turn.  Then the public
+    calls in 2000-call turns, three rounds, the current wrappers against
+    the older package's own: sse and sad on the 4x4 and 16x16 grids,
+    quant and dequant at 16x16.  x10, x8: run_batch_ops' inputs.
+    Returns {entry: {tag: record}}."""
+    import ctypes
+    from vvenc_tpu_torch.ops import kernels
+    from vvenc_tpu_torch.ops import rdcost as RD
+    from vvenc_tpu_torch.ops import transforms as T
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    rec = {"sse_batch": {}, "sad_batch": {}, "quant_batch": {},
+           "dequant_batch": {}, "public": {}}
+    for bd, x in ((10, x10), (8, x8)):
+        for s in DIST_GRIDS:
+            a, b = dist_pair(x, s)
+            B = a.shape[0]
+            for n, dtype in (("sse_batch", torch.float32),
+                             ("sad_batch", torch.int32)):
+                outs = {v: torch.empty((B,), dtype=dtype, device=dev)
+                        for v in ("old", "new")}
+                call = kernel_pair(
+                    okern, "dist_batch", f"vt_{n}", [P, P, P, L, I, I, P],
+                    lambda v: (a.data_ptr(), b.data_ptr(), outs[v].data_ptr(),
+                               B, s, s, kernels.stream_ptr(outs[v])))
+                r = old_new_case(
+                    torch, f"K10 {n} ({s}x{s}, {bd}-bit)", call, outs,
+                    lambda: getattr(RD, n)(a, b),
+                    bound_ms(*dist_work(n, B, s, s))[0], reps, turn=2000,
+                    cold=True, timed=bd == 10, B=B)
+                if r is not None:
+                    rec[n][f"{s}x{s}"] = r
+    qp, bd = 37, 10
+    for tag, (w, h, _, ck) in k6_cases.items():
+        if tag.startswith("search_step"):
+            continue
+        qk = T.quant_batch(ck, w, h, qp, bd)
+        n_ = ck.numel()
+        for n, x, params, argt in (
+                ("quant_batch", ck, T._quant_params(w, h, qp, bd, True),
+                 [P, P, L, I, I, I, P]),
+                ("dequant_batch", qk, T._dequant_params(w, h, qp, bd),
+                 [P, P, L, I, I, P])):
+            outs = {v: torch.empty_like(x) for v in ("old", "new")}
+            call = kernel_pair(
+                okern, "quant_batch", f"vt_{n}", argt,
+                lambda v: (x.data_ptr(), outs[v].data_ptr(), n_, *params,
+                           kernels.stream_ptr(outs[v])))
+            r = old_new_case(
+                torch, f"K7 {n} ({tag})", call, outs,
+                lambda: getattr(T, n)(x, w, h, qp, bd),
+                bound_ms(*tr_work(n, x.shape[0], w, h))[0], reps,
+                turn=2000, cold=True, timed=tag == "16x16", B=x.shape[0])
+            if r is not None:
+                rec[n][tag] = r
+    old_rd, old_t = old_module("ops.rdcost"), old_module("ops.transforms")
+    w, h, _, ck = k6_cases["16x16"]
+    qk = T.quant_batch(ck, w, h, qp, bd)
+    publics = [(f"{n} {s}x{s}", (lambda n=n, a=a, b=b:
+                                 getattr(old_rd, n)(a, b)),
+                (lambda n=n, a=a, b=b: getattr(RD, n)(a, b)))
+               for s in (4, 16) for a, b in (dist_pair(x10, s),)
+               for n in ("sse_batch", "sad_batch")]
+    publics += [("quant_batch 16x16", lambda: old_t.quant_batch(
+        ck, w, h, qp, bd), lambda: T.quant_batch(ck, w, h, qp, bd)),
+        ("dequant_batch 16x16", lambda: old_t.dequant_batch(
+            qk, w, h, qp, bd), lambda: T.dequant_batch(qk, w, h, qp, bd))]
+    for tag, old, new in publics:
+        if not torch.equal(old(), new()):
+            fail(f"public {tag}: the new wrapper's output != the old one's")
+        rounds = [in_turns(torch, old, new, 2000) for _ in range(3)]
+        rec["public"][tag] = {"old_ms": [r[0] for r in rounds],
+                              "ms": [r[1] for r in rounds]}
+    return rec
+
+
+def print_public(rec: dict) -> None:
+    """The public calls of an old_new_k* record, old against new."""
+    for tag, r in rec["public"].items():
+        print(f"  public {tag}, the older package's wrapper against the "
+              "current one, 2000-call turns, three rounds: old "
+              + ", ".join(f"{v:.5f}" for v in r["old_ms"]) + " ms; new "
+              + ", ".join(f"{v:.5f}" for v in r["ms"]) + " ms")
+
+
 def print_old_new(cmp: dict, names) -> None:
     """One line per shape of the old/new records of entries `names`."""
     for n in names:
@@ -2174,7 +2320,8 @@ def resource_rows() -> list:
     entries) per class, K5, K11 per block size, K6 (both entries) per
     class, K9 at its timed shapes, K1 and K2 per class of TR_CLASSES, K8
     per kind at luma 16x16 and chroma 8x8 (and luma 128x128 kind 3), K10
-    satd per tile of SATD_TILES."""
+    satd per tile of SATD_TILES, K10 sse and sad per grid of DIST_GRIDS,
+    K7 quant and dequant on the 16-byte and the 4-byte path."""
     from vvenc_tpu_torch.ops import intra_presel as S
     from vvenc_tpu_torch.ops.tables import presel_mode_tables
     rows = [(f"{name} {s}x{s}", "plan_trial", f"vt_{name}_attrs", (s, s))
@@ -2208,6 +2355,12 @@ def resource_rows() -> list:
     rows += [(f"satd_batch {tag} tile {t}", "dist_batch",
               "vt_dist_batch_attrs", (t, int(tag[:2]), int(tag[:2])))
              for tag, tiles in SATD_TILES.items() for t in tiles]
+    rows += [(f"{n} {g}x{g}", "dist_batch", "vt_sse_sad_attrs",
+              (int(n == "sse_batch"), g, g))
+             for n in ("sse_batch", "sad_batch") for g in DIST_GRIDS]
+    rows += [(f"{n} {'16-byte' if vec else '4-byte'}", "quant_batch",
+              "vt_quant_batch_attrs", (int(n == "dequant_batch"), vec))
+             for n in ("quant_batch", "dequant_batch") for vec in (1, 0)]
     return rows
 
 
@@ -2219,8 +2372,8 @@ def resource_line(label: str, r: dict) -> str:
 
 
 def print_resources() -> dict:
-    """Prints and returns the resources of K1's, K2's, K3's, K4's, K5's,
-    K6's, K8's, K9's, K10 satd's and K11's kernels (registers, shared
+    """Prints and returns the resources of K1's to K11's kernels (the
+    rows of resource_rows: registers, shared
     memory, threads, resident blocks per SM and local memory, from each
     source's vt_*_attrs query on this card)."""
     from vvenc_tpu_torch.ops import kernels
@@ -2360,7 +2513,7 @@ def main(argv=None) -> int:
     ap.add_argument("--old-csrc", default=None,
                     help="the vvenc_tpu_torch/csrc directory of an older "
                          "checkout: also import that package, build its "
-                         "K1, K2, K5, K6, K8, K9, K10 and K11 sources and "
+                         "K1, K2 and K5-K11 sources and "
                          "set them against the current ones (outputs equal, "
                          "times in turns, resources)")
     args = ap.parse_args(argv)
@@ -2380,7 +2533,7 @@ def main(argv=None) -> int:
 
     # phase 2: kernels (parallel nvcc) and the native library (g++)
     from vvenc_tpu_torch.ops import kernels
-    t0 = time.time()
+    t0 = t_run = time.time()
     built = {}
     old = {}
     th = threading.Thread(target=lambda: built.update(kernels.build()))
@@ -2413,6 +2566,7 @@ def main(argv=None) -> int:
     report = {"card": card, "kind": kind, "build_seconds": t_build}
     pic10, crecs, precs, (pms, pbound, pby), (gms, gbound, gby) = \
         k3_k4_phase(torch, dev, report)
+    stamp(t_run, "planning and K4")
     W, H = 1920, 1080
 
     # phase 3, K1 and K2: search_step's shape, the 1080p classes, config
@@ -2452,6 +2606,7 @@ def main(argv=None) -> int:
               f"and 10 bits; {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
               f"bound {bound_ms(*r['work'])[0]:.4f})", flush=True)
     report["me"] = me
+    stamp(t_run, "K1, K2 and K5")
 
     # phase 3, K6 and K7: residuals of 1080p pictures at 8 and 10 bits
     trecs = run_tr(torch, dev, {8: luma_frames(W, H, 1, 8, seed=71)[0],
@@ -2463,13 +2618,17 @@ def main(argv=None) -> int:
     for r in trecs:
         tag = "search_step" if r.get("search_step") else "class"
         print(f"  {tag} {r['w']:2d}x{r['h']:<2d} B={r['B']:6d}: " + ", ".join(
-            f"{n} {r['ms'][n]:.4f} ms (kernel alone "
-            f"{dev_str(r['device_ms'][n])}, plain {r['plain_ms'][n]:.3f}, "
+            f"{n} {r['ms'][n]:.4f} ms (device "
+            f"{dev_str(r['device_ms'][n])}" + (
+                f", cold {dev_str(r['cold_device_ms'][n])}"
+                if "cold_device_ms" in r else "")
+            + f", plain {r['plain_ms'][n]:.3f}, "
             f"bound {tr_bound(n, r)[0]:.5f}" + (
                 f", int32 yardstick {bound_ms(*r['work'][n])[0]:.5f})"
                 if n in K6_ENTRIES else ")")
             for n in TR_KERNELS if n in r["ms"]))
     report["transforms"] = trecs
+    stamp(t_run, "K6 and K7")
     tr16 = next(r for r in trecs if (r["w"], r["h"]) == (16, 16)
                 and not r.get("search_step"))
     trss = next(r for r in trecs if r.get("search_step"))
@@ -2511,7 +2670,8 @@ def main(argv=None) -> int:
         print(f"  mode_costs {tag} B={r['B']}: {r['ms']:.4f} ms (bound "
               f"{bound_ms(*r['work'])[0]:.4f})")
     for k, r in batch["per_call"].items():
-        if " kind " in k or k.startswith("satd_batch "):
+        if " kind " in k or k.startswith(("satd_batch ", "sse_batch ",
+                                          "sad_batch ")):
             bms, by = bound_ms(*r["work"])
             print(f"  {k} B={r['B']}: {r['ms']:.4f} ms (device "
                   f"{dev_str(r['device_ms'])}, cold "
@@ -2522,13 +2682,15 @@ def main(argv=None) -> int:
           f"{LUMA_PHASES}: " + ", ".join(dev_str(v) for v in lp)
           + f"; mean {dev_str(None if mean is None else mean / len(lp))}")
     report["batch_ops"] = batch
+    stamp(t_run, "K8-K11")
     if old:
         okern = old["kernels"]
         fs_cases = {f"{s}x{s} R={R}": (s, s, R) + batch_fs_cases[(s, R)]
                     for s, R in FS_SHAPES}
         fs_cases.update(fs_int_cases(torch, dev, pic10))
-        cmp = old_new_phase(torch, dev, okern, me_cases, mi10,
-                            tr_cases(torch, dev, pic10), fs_cases, reps=20)
+        k6c = tr_cases(torch, dev, pic10)
+        cmp = old_new_phase(torch, dev, okern, me_cases, mi10, k6c, fs_cases,
+                            reps=20)
         print(f"phase 3: K1, K2, K5, K6, K9 and K11 against the kernels of "
               f"{args.old_csrc}: "
               "outputs equal; old -> new ms, called alike and timed old, "
@@ -2555,17 +2717,30 @@ def main(argv=None) -> int:
               "cold: after an L2 flush; the public function; bound)",
               flush=True)
         print_old_new(k810, ("mc_batch", "satd_batch"))
-        for tag, r in k810["public"].items():
-            print(f"  public {tag}, the older package's wrapper against "
-                  "the current one, 2000-call turns, three rounds: old "
-                  + ", ".join(f"{v:.5f}" for v in r["old_ms"]) + " ms; new "
-                  + ", ".join(f"{v:.5f}" for v in r["ms"]) + " ms")
+        print_public(k810)
         cmp.update(k810)
+        k710 = old_new_k7k10(torch, dev, okern, batch_x[10], batch_x[8], k6c,
+                             reps=20)
+        print("phase 3: K7 quant/dequant_batch and K10 sse/sad_batch "
+              f"against the kernels of {args.old_csrc}: outputs equal (K10 "
+              "on the 4x4, 8x8, 16x16 and 64x64 grids at 8 and 10 bits, K7 "
+              "on every class at 10 bits, QP 37); old -> new ms at 10 bits, "
+              "called alike and timed old, new, new, old (device time of "
+              "the kernel alone; cold: after an L2 flush; the public "
+              "function; bound)", flush=True)
+        print_old_new(k710, ("quant_batch", "dequant_batch", "sse_batch",
+                             "sad_batch"))
+        print_public(k710)
+        for n in ("quant_batch", "dequant_batch", "sse_batch", "sad_batch"):
+            cmp[n] = k710[n]
+        cmp["public"].update(k710["public"])
         for label, r in cmp["resources"].items():
             print(resource_line(f"{label} (old)", r))
         report["old_new"] = cmp
+        stamp(t_run, "the old/new comparison")
 
     # phase 4: the main paths through the CLI
+    from vvenc_tpu_torch.tools.calibrate_plan import make_clip
     from vvenc_tpu_torch.utils.devclock import DEV
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     clip1 = os.path.join(tmp, "c1.yuv")
@@ -2598,14 +2773,19 @@ def main(argv=None) -> int:
         "medium", ["--gop-size", "2", "--intra-period", "0", "--qpa", "1",
                    "--wpp", "--threads", "2", "--set", "me_mode=device"],
         ("frame_me",))
+    stamp(t_run, "the CLI encodes")
+    report["tools"] = tools_phase(clip1, 416, 240, 10, tmp)
+    stamp(t_run, "the tool twins")
     clips = {"config1": (clip1, 416, 240, 10, "faster", True),
              "hd_faster": (clip_hd, 1920, 1080, 4, "faster", True),
              "hd_medium": (clip_hd, 1920, 1080, 2, "medium", False),
              "config2": (clip2,)}
     api_launches = api_phase(torch, kernels, clips, tmp, report)
     del clips["config2"]
+    stamp(t_run, "the library entry points")
     mesh_launches = mesh_phase(torch, dev, kernels, clips, pic10,
                                report)
+    stamp(t_run, "the mesh path")
 
     # phase 5: one line per kernel entry; launches from the path run
     # that reaches it (K3's reference entry VVEncImpl streaming config 1,

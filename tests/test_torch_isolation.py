@@ -34,6 +34,8 @@ def test_import_closure_has_no_jax_and_no_vvenc_tpu():
         "import vvenc_tpu_torch.decoder, vvenc_tpu_torch.ops.tables\n"
         "import vvenc_tpu_torch.ops.rdoq, vvenc_tpu_torch.ops.depquant\n"
         "import vvenc_tpu_torch.encoder.filmgrain\n"
+        "import vvenc_tpu_torch.tools, vvenc_tpu_torch.tools.bdrate\n"
+        "import vvenc_tpu_torch.tools.calibrate_plan\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'vvenc_tpu'))\n"
         "print(repr(bad))\n")

@@ -188,6 +188,41 @@ def test_transform_and_quant_kernels_match_plain(cuda, w, h, bd):
     for e, k in (("fwd_transform_batch", 1), ("inv_transform_batch", 1),
                  ("quant_batch", 10), ("dequant_batch", 5)):
         assert kernels.launches[e] == n[e] + k, e
+    # K7 on a view 4 bytes off 16-byte alignment (the 4-byte path)
+    x = _off(ck, 1, cuda)
+    assert torch.equal(T.quant_batch(x, w, h, 37, bd),
+                       T.quant_batch_ref(ck, w, h, 37, bd))
+    assert torch.equal(T.dequant_batch(_off(qk, 3, cuda), w, h, 37, bd),
+                       T.dequant_batch_ref(qk, w, h, 37, bd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 1003, 4099, 1 << 21])
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_quant_kernels_take_any_length_and_alignment(cuda, n, k):
+    """vt_quant_batch / vt_dequant_batch on flat tensors of n samples, n
+    not a multiple of 4 (the scalar tail) and above one wave's two
+    vectors a thread (2^21), starting k samples past an allocation: equal
+    to the plain versions, every sample written."""
+    import ctypes
+    from vvenc_tpu_torch.ops import transforms as T
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    rng = np.random.RandomState(n + k)
+    c = torch.from_numpy(rng.randint(-40000, 40000, n).astype(np.int32))
+    x = _off(c.to(cuda), k, cuda)
+    for name, params, argt, plain in (
+            ("quant_batch", T._quant_params(16, 16, 37, 10, True),
+             [P, P, L, I, I, I, P],
+             lambda v: T.quant_batch_ref(v, 16, 16, 37, 10, True)),
+            ("dequant_batch", T._dequant_params(16, 16, 37, 10),
+             [P, P, L, I, I, P],
+             lambda v: T.dequant_batch_ref(v, 16, 16, 37, 10))):
+        out = torch.full((n,), -123456789, dtype=torch.int32, device=cuda)
+        fn = kernels.function("quant_batch", f"vt_{name}", argt)
+        kernels.check("quant_batch", fn(x.data_ptr(), out.data_ptr(), n,
+                                        *params, kernels.stream_ptr(out)))
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), plain(c)), name
 
 
 @pytest.mark.cuda
@@ -375,7 +410,15 @@ K10_CASES = [("13x64x64", (13, 64, 64), 0, 1024),
              ("7x192x320", (7, 3 * 64, 5 * 64), 0, 1024),          # 15 tiles
              ("7x24x8", (7, 24, 8), 0, 1024),            # 3 tiles at tile 8
              ("1x64x64", (1, 64, 64), 0, 4096),
-             ("37x16x16", (37, 16, 16), -2 ** 30, 2 ** 30)]
+             ("37x16x16", (37, 16, 16), -2 ** 30, 2 ** 30),
+             # sse / sad: the 4x4 and 8x8 grids' shapes, odd widths (the
+             # 4-byte path), a row of 12, a 4x4 batch whose sums wrap
+             ("129x4x4", (129, 4, 4), 0, 1024),
+             ("67x8x8", (67, 8, 8), 0, 1024),
+             ("23x6x6", (23, 6, 6), 0, 4096),
+             ("9x3x5", (9, 3, 5), 0, 1024),
+             ("31x1x12", (31, 1, 12), -1024, 1024),
+             ("41x4x4 wrap", (41, 4, 4), -2 ** 30, 2 ** 30)]
 K10_PARAMS = [(tile, name) for tile in (1, 2, 4, 8, 16, 32, 64)
               for name, shape, _, _ in K10_CASES
               if shape[1] % tile == 0 and shape[2] % tile == 0]
@@ -424,6 +467,29 @@ def test_satd_batch_writes_every_element_of_an_uninitialised_output(cuda,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(4, 4), (8, 8), (16, 16), (64, 64), (6, 6)])
+def test_sse_sad_write_every_element_past_one_wave(cuda, H, W):
+    """vt_sse_batch / vt_sad_batch store every element once and read
+    nothing of out: batches of more elements than one wave of blocks
+    takes in a step (the blocks loop), into outputs full of garbage, on
+    aligned inputs and on views 4 bytes off alignment."""
+    from vvenc_tpu_torch.ops import rdcost as R
+    B = (1 << 21) // (H * W) + 77
+    rng = np.random.RandomState(H * W)
+    a, b = (torch.from_numpy(rng.randint(0, 1024, (B, H, W))
+                             .astype(np.int32)).to(cuda) for _ in range(2))
+    for x, y in ((a, b), (_off(a, 1, cuda), _off(b, 2, cuda))):
+        for name, dtype, plain in (("sse_batch", torch.float32,
+                                    R.sse_batch_ref),
+                                   ("sad_batch", torch.int32,
+                                    R.sad_batch_ref)):
+            out = torch.full((B,), -7, dtype=dtype, device=cuda)
+            R._launch(name, f"vt_{name}", x, y, out)
+            torch.cuda.synchronize()
+            assert torch.equal(out, plain(a, b)), (name, x.data_ptr() % 16)
+
+
+@pytest.mark.cuda
 def test_k8_k10_resource_queries(cuda):
     """vt_mc_batch_attrs for every kind at the H.266 sizes (and the generic
     widths), vt_dist_batch_attrs for every tile: no stack, spill or local
@@ -443,6 +509,16 @@ def test_k8_k10_resource_queries(cuda):
                                   H, W)
             assert r["local_bytes"] == 0, (tile, H, W, r)
             assert r["blocks_per_sm"] >= 1, (tile, H, W, r)
+    # sse and sad (vt_sse_sad_attrs), K7 on both paths
+    for sse in (0, 1):
+        for H, W in ((4, 4), (8, 8), (16, 16), (64, 64), (6, 6)):
+            r = kernels.resources("dist_batch", "vt_sse_sad_attrs", sse, H,
+                                  W)
+            assert r["local_bytes"] == 0 and r["blocks_per_sm"] >= 1, r
+        for vec in (0, 1):
+            r = kernels.resources("quant_batch", "vt_quant_batch_attrs", sse,
+                                  vec)
+            assert r["local_bytes"] == 0 and r["blocks_per_sm"] >= 1, r
 
 
 @pytest.mark.cuda

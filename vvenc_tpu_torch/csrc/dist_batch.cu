@@ -27,12 +27,33 @@
 // Bound: bytes.  Each input sample is read once (8 bytes for the pair)
 // against a handful of integer operations (SATD: 2 log2(tile) butterfly
 // adds and an abs-sum per sample; the [8040, 16, 16] pair of a 1080p
-// 16x16 grid is 16.5 MB, 4.9 us at 3.35 TB/s).  sse and sad run one
-// thread block per batch element, its threads striding over the samples
-// and reducing by warp shuffles.  satd (the first kernel gave a whole
-// 8x8 tile to one thread, whose 128 scalar loads put neighbouring lanes
-// 32 bytes apart, added the tiles with atomics into a zeroed output and
-// ran tiles 16..64 with T of 64 threads busy):
+// 16x16 grid is 16.5 MB, 4.9 us at 3.35 TB/s; the 4x4 grid's 17.1 MB
+// 5.1 us).  sse and sad (the first kernel ran a 256-thread block an
+// element on 4-byte loads, its sum through shared memory, a barrier and
+// a serial loop on thread 0: at 4x4, 240 of 256 threads idle and 123
+// waves of blocks):
+// - an element's U units (16-byte vectors of 4 samples, or single
+//   samples on the 4-byte path) go to TE threads, a power of two of
+//   about U / 2 up to 256: a thread takes units ti, ti + TE, ..., two at
+//   a time, all four loads issued before any arithmetic; neighbouring
+//   threads read neighbouring units, so a warp's load covers whole
+//   32-byte sectors;
+// - small elements share a warp (LPE = TE lanes each), larger ones take
+//   WPE = TE / 32 warps of the block;
+// - the element's lanes sum by a segmented __shfl_down_sync (no shared
+//   memory, no barrier up to 32 lanes), the warps of a larger element
+//   through shared memory, and one thread stores the element;
+// - one wave of blocks (the resident blocks of the card) loops over the
+//   elements;
+// - the 4-byte path, in the same kernel, takes elements of H W not a
+//   multiple of 4 samples and tensors off 16-byte alignment.
+// sse sums in unsigned 64 bits and sad in unsigned 32 bits, as the
+// first kernel: modular sums, so no order of the adds changes a bit.
+// tests/test_torch_k7k10_models.py holds this decomposition against the
+// reference.  satd (the first kernel gave a whole 8x8 tile to one
+// thread, whose 128 scalar loads put neighbouring lanes 32 bytes apart,
+// added the tiles with atomics into a zeroed output and ran tiles 16..64
+// with T of 64 threads busy):
 // - tiles 1..16: a tile on T lanes (32 at 16), a lane a row of T values
 //   (8 at 16, two lanes a row) read as 16-byte vectors; the row
 //   butterflies in the lane (and across its row's two lanes at 16), the
@@ -58,6 +79,9 @@
 // against the reference.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -97,41 +121,99 @@ __device__ __forceinline__ V warp_sum(V v) {
   return v;
 }
 
-// sum of v over the thread block (blockDim.x a multiple of 32, <= 1024);
-// thread 0 gets the result
-template <typename V>
-__device__ V block_sum(V v, V* red) {
-  v = warp_sum(v);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  V s = 0;
-  if (threadIdx.x == 0)
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
-  return s;
+// ---- sse and sad ----------------------------------------------------------
+
+// the accumulator: sse the exact sum of squares modulo 2^64, sad modulo 2^32
+template <bool SSE>
+using DistAcc = typename std::conditional<SSE, unsigned long long,
+                                          unsigned>::type;
+
+template <bool SSE>
+__device__ __forceinline__ void dist_add(unsigned d, DistAcc<SSE>& acc) {
+  if constexpr (SSE) {
+    const long long ds = (int)d;  // the difference wraps to int32 first
+    acc += (unsigned long long)(ds * ds);
+  } else {
+    acc += uabs(d);
+  }
 }
 
 template <bool SSE>
+__device__ __forceinline__ void dist_unit(int4 x, int4 y, DistAcc<SSE>& acc) {
+  dist_add<SSE>((unsigned)x.x - (unsigned)y.x, acc);
+  dist_add<SSE>((unsigned)x.y - (unsigned)y.y, acc);
+  dist_add<SSE>((unsigned)x.z - (unsigned)y.z, acc);
+  dist_add<SSE>((unsigned)x.w - (unsigned)y.w, acc);
+}
+
+template <bool SSE>
+__device__ __forceinline__ void dist_unit(int x, int y, DistAcc<SSE>& acc) {
+  dist_add<SSE>((unsigned)x - (unsigned)y, acc);
+}
+
+struct DistParams {
+  long long B;
+  unsigned U;  // units an element: 16-byte vectors (VEC) or samples
+  int LPE;     // lanes an element in its warp (a power of two up to 32)
+  int WPE;     // warps an element (a power of two up to 8; LPE 32 if > 1)
+};
+
+// an element's U units on TE = LPE * WPE threads, thread ti taking units
+// ti, ti + TE, ... two at a time; the lanes' sums by a segmented shuffle,
+// the warps' (WPE > 1) through shared memory; one store an element; the
+// blocks loop over the elements
+template <bool SSE, bool VEC>
 __global__ void __launch_bounds__(kThreads) dist_kernel(
-    const int* __restrict__ a, const int* __restrict__ b, void* out, int n) {
-  __shared__ unsigned long long red[kThreads / 32];
-  const size_t base = (size_t)blockIdx.x * n;
-  unsigned long long acc = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const unsigned d = (unsigned)__ldg(a + base + i) - (unsigned)__ldg(b + base + i);
-    if (SSE) {
-      const long long ds = (int)d;  // the difference wraps to int32 first
-      acc += (unsigned long long)(ds * ds);
-    } else {
-      acc += uabs(d);
+    const int* __restrict__ a, const int* __restrict__ b,
+    void* __restrict__ out, const DistParams p) {
+  using Unit = typename std::conditional<VEC, int4, int>::type;
+  using Acc = DistAcc<SSE>;
+  __shared__ Acc red[kThreads / 32];
+  const Unit* __restrict__ ua = reinterpret_cast<const Unit*>(a);
+  const Unit* __restrict__ ub = reinterpret_cast<const Unit*>(b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int epw = 32 / p.LPE, groups = (kThreads / 32) / p.WPE;
+  const long long epb = (long long)groups * epw;  // elements a block step
+  const int eg = warp / p.WPE, wi = warp - eg * p.WPE;
+  const int ll = lane & (p.LPE - 1);
+  const unsigned te = (unsigned)(p.LPE * p.WPE);
+  const unsigned ti = (unsigned)(wi * p.LPE + ll);
+  for (long long e0 = (long long)blockIdx.x * epb; e0 < p.B;
+       e0 += (long long)gridDim.x * epb) {
+    const long long e = e0 + eg * epw + lane / p.LPE;
+    Acc acc = 0;
+    if (e < p.B) {
+      const Unit* __restrict__ pa = ua + (size_t)e * p.U;
+      const Unit* __restrict__ pb = ub + (size_t)e * p.U;
+      unsigned u = ti;
+      for (; u + te < p.U; u += 2 * te) {
+        const Unit x0 = __ldg(pa + u), y0 = __ldg(pb + u);
+        const Unit x1 = __ldg(pa + u + te), y1 = __ldg(pb + u + te);
+        dist_unit<SSE>(x0, y0, acc);
+        dist_unit<SSE>(x1, y1, acc);
+      }
+      if (u < p.U) dist_unit<SSE>(__ldg(pa + u), __ldg(pb + u), acc);
     }
-  }
-  const unsigned long long s = block_sum(acc, red);
-  if (threadIdx.x == 0) {
-    if (SSE)
-      ((float*)out)[blockIdx.x] = (float)(long long)s;  // round to nearest
-    else
-      ((int*)out)[blockIdx.x] = (int)(unsigned)s;       // modulo 2^32
+    // the element's LPE lanes: lane ll == 0 gets their sum
+    for (int o = p.LPE >> 1; o > 0; o >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, acc, o, p.LPE);
+    long long eo = e;
+    if (p.WPE > 1) {
+      if (lane == 0) red[warp] = acc;
+      __syncthreads();
+      eo = e0 + threadIdx.x;
+      acc = 0;
+      if ((int)threadIdx.x < groups)
+        for (int i = 0; i < p.WPE; ++i) acc += red[threadIdx.x * p.WPE + i];
+      __syncthreads();  // red is written again in the next step
+    }
+    const bool writer = p.WPE > 1 ? (int)threadIdx.x < groups : ll == 0;
+    if (writer && eo < p.B) {
+      if constexpr (SSE)
+        ((float*)out)[eo] = (float)(long long)acc;  // round to nearest
+      else
+        ((int*)out)[eo] = (int)acc;                 // modulo 2^32
+    }
   }
 }
 
@@ -374,6 +456,73 @@ int pow2_floor(long long v) {
   return p;
 }
 
+// the kernel, its parameters and grid for sse (or sad) on B elements of n
+// samples; vec: a and b 16-byte aligned
+struct DistLaunch {
+  const void* f;
+  DistParams p;
+  long long grid;
+};
+
+// one wave: the blocks of the kernel that fit on the card at once (the
+// card's SMs times the kernel's occupancy; asked once, 0 while the query
+// fails)
+template <bool SSE, bool VEC>
+int dist_resident_blocks() {
+  static std::atomic<int> blocks{0};
+  int v = blocks.load(std::memory_order_relaxed);
+  if (v == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+            cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, dist_kernel<SSE, VEC>, kThreads, 0) == cudaSuccess)
+      blocks.store(v = sms * per_sm, std::memory_order_relaxed);
+  }
+  return v;
+}
+
+template <bool SSE>
+DistLaunch dist_plan(long long B, long long n, bool vec) {
+  DistLaunch L;
+  DistParams& p = L.p;
+  p.B = B;
+  vec = vec && n % 4 == 0;
+  p.U = (unsigned)(vec ? n / 4 : n);
+  // about two units a thread, up to the block's 256 threads an element
+  long long te = 1;
+  while (te < ((long long)p.U + 1) / 2 && te < kThreads) te *= 2;
+  p.LPE = te < 32 ? (int)te : 32;
+  p.WPE = te < 32 ? 1 : (int)te / 32;
+  const long long epb = (long long)(kThreads / 32 / p.WPE) * (32 / p.LPE);
+  L.f = vec ? (const void*)dist_kernel<SSE, true>
+            : (const void*)dist_kernel<SSE, false>;
+  const long long wave = vec ? dist_resident_blocks<SSE, true>()
+                             : dist_resident_blocks<SSE, false>();
+  L.grid = (B + epb - 1) / epb;
+  if (L.grid > wave) L.grid = wave;
+  return L;
+}
+
+int dist_launch(const DistLaunch& L, const void* a, const void* b, void* out,
+                void* stream) {
+  if (L.grid <= 0) {  // the occupancy query failed
+    const cudaError_t e = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
+  }
+  void* args[] = {(void*)&a, (void*)&b, (void*)&out, (void*)&L.p};
+  const cudaError_t e =
+      cudaLaunchKernel(L.f, dim3((unsigned)L.grid), dim3(kThreads), args, 0,
+                       (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* a, const void* b) {
+  return (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
+}
+
 // the kernel, its launch and parameters for B elements of H x W at tile
 // T; vec: a and b 16-byte aligned
 struct SatdLaunch {
@@ -460,25 +609,23 @@ extern "C" const char* vt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// a, b [B, H, W] int32 -> out [B] float32.  Returns cudaGetLastError()
-// after the launch on `stream`.
+// a, b [B, H, W] int32 -> out [B] float32 (every element written once).
+// Returns cudaGetLastError() after the launch on `stream`.
 extern "C" int vt_sse_batch(const void* a, const void* b, void* out,
                             long long B, int H, int W, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   if (!shape_ok(B, H, W)) return (int)cudaErrorInvalidValue;
-  dist_kernel<true><<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)a, (const int*)b, out, H * W);
-  return (int)cudaGetLastError();
+  return dist_launch(dist_plan<true>(B, (long long)H * W, aligned16(a, b)),
+                     a, b, out, stream);
 }
 
-// a, b [B, H, W] int32 -> out [B] int32.
+// a, b [B, H, W] int32 -> out [B] int32 (every element written once).
 extern "C" int vt_sad_batch(const void* a, const void* b, void* out,
                             long long B, int H, int W, void* stream) {
   cudaGetLastError();
   if (!shape_ok(B, H, W)) return (int)cudaErrorInvalidValue;
-  dist_kernel<false><<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)a, (const int*)b, out, H * W);
-  return (int)cudaGetLastError();
+  return dist_launch(dist_plan<false>(B, (long long)H * W, aligned16(a, b)),
+                     a, b, out, stream);
 }
 
 // a, b [B, H, W] int32 -> out [B] int32 (every element written once; its
@@ -522,6 +669,29 @@ extern "C" int vt_dist_batch_attrs(int tile, int H, int W, int* out) {
   out[1] = (int)at.sharedSizeBytes;
   out[2] = 0;
   out[3] = L.threads;
+  out[4] = blocks;
+  out[5] = (int)at.localSizeBytes;
+  return 0;
+}
+
+// the resources of sse's (sse != 0) or sad's kernel for a large batch of
+// H x W elements on aligned inputs, in vt_dist_batch_attrs' order.
+extern "C" int vt_sse_sad_attrs(int sse, int H, int W, int* out) {
+  if (!shape_ok(1, H, W)) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)H * W;
+  const DistLaunch L = sse ? dist_plan<true>(1LL << 30, n, true)
+                           : dist_plan<false>(1LL << 30, n, true);
+  cudaFuncAttributes at;
+  cudaError_t e = cudaFuncGetAttributes(&at, L.f);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, L.f, kThreads,
+                                                    0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = at.numRegs;
+  out[1] = (int)at.sharedSizeBytes;
+  out[2] = 0;
+  out[3] = kThreads;
   out[4] = blocks;
   out[5] = (int)at.localSizeBytes;
   return 0;
