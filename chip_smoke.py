@@ -98,6 +98,12 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      bdrate's
      run_ours at QP 37 bit-exact to config 1's CLI stream above; bdrate
      without a reference encoder must raise naming the path;
+   - the bench twin's (vvenc_tpu_torch.bench) config-1 stage on config
+     1's clip: its warm encode with --verify, then 3 timed passes; the
+     median pass's rate above 0, its device-time share in (0, 1], the
+     fused SATD and K3's reference entry launched in it, and the passes'
+     stream config 1's CLI stream above; its record printed on a line of
+     its own (phase 4: bench twin);
    - the library entry points: VVEncImpl streaming config 1's options
      (the fused SATD and K3's reference entry must launch in its
      window) and config 2's with
@@ -1662,6 +1668,36 @@ def tools_phase(clip, w, h, n, tmp) -> dict:
             "run_ours_bits": bits, "run_ours_psnr_yuv": psnr}
 
 
+def bench_twin_phase(clip, tmp) -> dict:
+    """The bench twin's config-1 stage on config 1's clip (the stage's
+    clip): the warm encode with --verify, then its timed passes, each
+    with the launch counts set to 0 before and read after.  Fails unless
+    the median pass ran at a rate above 0 with a device-time share in
+    (0, 1], launched the fused SATD and K3's reference entry and none of
+    K1, K2 and the preds-form K3, and the passes' stream is config 1's
+    CLI stream (tmp/config1.266).  Returns the stage's record."""
+    from vvenc_tpu_torch import bench as TB
+    st = TB.STAGES[0]
+    work = os.path.join(tmp, "bench_twin")
+    os.makedirs(work)
+    rec, stream, _ = TB.run_stage(st, clip, work, "cuda")
+    launches = rec["launches"]
+    if not (rec["median_fps"] > 0 and 0 < rec["device_share"] <= 1):
+        fail(f"bench twin {st.key}: {rec}")
+    missing = [n for n in PLAN_KERNELS if not launches.get(n)]
+    bad = [n for n in OLD_PLAN_KERNELS if launches.get(n)]
+    if missing or bad:
+        fail(f"bench twin {st.key}: {missing} never launched, {bad} "
+             f"launched: {launches}")
+    with open(os.path.join(tmp, "config1.266"), "rb") as f:
+        if f.read() != stream:
+            fail(f"bench twin {st.key}: the passes' stream is not config "
+                 "1's CLI stream")
+    print(f"phase 4: bench twin {st.key} (== config 1's CLI stream): "
+          f"{json.dumps(rec)}", flush=True)
+    return rec
+
+
 def compare_plans(sizes, W, H, lmbdas, kern, plain):
     """Plan tables from the kernels' and the plain versions' modes/costs:
     equal, or a flip at a near-tie.  Returns the number of flips."""
@@ -2776,6 +2812,8 @@ def main(argv=None) -> int:
     stamp(t_run, "the CLI encodes")
     report["tools"] = tools_phase(clip1, 416, 240, 10, tmp)
     stamp(t_run, "the tool twins")
+    report["bench_twin"] = bench_twin_phase(clip1, tmp)
+    stamp(t_run, "the bench twin")
     clips = {"config1": (clip1, 416, 240, 10, "faster", True),
              "hd_faster": (clip_hd, 1920, 1080, 4, "faster", True),
              "hd_medium": (clip_hd, 1920, 1080, 2, "medium", False),

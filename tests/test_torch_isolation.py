@@ -36,6 +36,7 @@ def test_import_closure_has_no_jax_and_no_vvenc_tpu():
         "import vvenc_tpu_torch.encoder.filmgrain\n"
         "import vvenc_tpu_torch.tools, vvenc_tpu_torch.tools.bdrate\n"
         "import vvenc_tpu_torch.tools.calibrate_plan\n"
+        "import vvenc_tpu_torch.bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'vvenc_tpu'))\n"
         "print(repr(bad))\n")
