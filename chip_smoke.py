@@ -24,12 +24,16 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      being allowed only at a near-tie (relative gap < 1e-5; flips are
      counted and printed).  Times per class at 1080p, on config 1's one
      10-frame plan batch and on one of its pictures (the streaming
-     encode's plan); then build_plans on config 1's batch and 1080p
+     encode's plan): the call (CUDA events) of every kernel and, for K4's
+     gathered entry and both K3 entries, the device time of a call warm
+     and after an L2 flush (call_device_ms); then build_plans on config
+     1's batch and 1080p
      faster's through both routes in turns: times, the peak of
      torch.cuda.max_memory_allocated, plan tables equal.
    - K4 (presel_costs) bit-exact on one 1920x1080 10-bit picture over
      all 23 MTT classes, and on an 832x480 8-bit crop; times it per
-     class and per picture (all classes into one buffer), the one fetch
+     class and per picture (all classes into one buffer; the picture's
+     device time too, warm and cold), the one fetch
      of the picture's costs apart (pinned and pageable), and a whole
      FramePresel (upload, launches, fetch).
    - The resources of K3's (both entries) and K4's kernels per class:
@@ -129,8 +133,15 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
    With --old-csrc DIR (an older checkout's vvenc_tpu_torch/csrc, for
    example the parent commit's, unpacked), phase 3 also imports the
    package that holds DIR under another name (old_package), builds its
-   K1, K2 and K5-K11 with its own kernels module and sets them against
-   the current ones, called alike (old_new_case):
+   K1-K3 and K5-K11 with its own kernels module and sets them against
+   the current ones, called alike (old_new_case): K3's two entries on
+   every class of the planning shapes above (modes equal, costs within
+   rtol 1e-5, device time warm and cold; the run fails where a class of
+   the reference entry takes more device time than the old one by more
+   than 5 %, and prints the public plan_trial_refs against the older
+   wrapper on config 1's batch and picture; in phase 4 the config 1 and
+   1080p all-intra faster encodes again with the older reference entry
+   must give the same streams, byte for byte);
    outputs equal at every K5, K11 and K9 shape above (K9 also on its
    integer route: a 12-bit checkerboard at 16x16 R = 16 and 6x6 blocks
    at R = 8), every K6 class and search_step's shape,
@@ -225,6 +236,14 @@ PLAN_KERNELS = ("presel_costs_gathered", "plan_trial_refs")
 # (K1 and K2 stay on the mesh path's search_step)
 OLD_PLAN_KERNELS = ("intra_pred_all", "satd_modes", "plan_trial")
 CLASS_KERNELS = OLD_PLAN_KERNELS + PLAN_KERNELS
+# the planning entries run_classes also times on the device, warm and
+# cold, per class: K4's gathered entry and K3's two entries
+DEVICE_CLASS_KERNELS = ("presel_costs_gathered", "plan_trial",
+                        "plan_trial_refs")
+# a redesigned K3 class fails the old/new comparison when its device time
+# exceeds the parent's by more than this share (the profiler's spread
+# between sessions of one call)
+K3_NOISE = 0.05
 TR_KERNELS = ("fwd_transform_batch", "inv_transform_batch", "quant_batch",
               "dequant_batch")
 K6_ENTRIES = TR_KERNELS[:2]
@@ -555,17 +574,10 @@ def run_classes(torch, dev, srcs, bit_depth, qp, lmbda, sizes,
     versions."""
     from vvenc_tpu_torch.ops import intra_plan as P
     from vvenc_tpu_torch.ops import intra_presel as S
-    H, W = srcs[0].shape
-    planes = torch.from_numpy(np.stack(
-        [np.pad(s, P.PAD, mode="edge") for s in srcs]).astype(np.int16)
-    ).to(dev)
     recs, out = [], {"route": [], "old": [], "plain": []}
     for s in sizes:
-        blocks, tops, lefts = P._class_inputs(planes, s, W, H)
+        blocks, tops, lefts, lm, ls = class_batch(torch, dev, srcs, s, lmbda)
         B = blocks.shape[0]
-        lm = torch.full((B,), lmbda, dtype=torch.float32, device=dev)
-        ls = torch.full((B,), float(np.float32(lmbda) ** 0.5),
-                        dtype=torch.float32, device=dev)
         fk = S.presel_costs(blocks, tops, lefts, s, s, bit_depth)
         fmk, fck = P.plan_trial_refs(blocks, tops, lefts, fk, lm, ls, s, s,
                                      qp, bit_depth, implicit_mts, k)
@@ -623,6 +635,13 @@ def run_classes(torch, dev, srcs, bit_depth, qp, lmbda, sizes,
                                 lambda: P.plan_trial_refs_ref(*args3r)),
         }
         rec["ms"] = {n: cuda_ms(torch, c[0], reps) for n, c in calls.items()}
+        # the device time of one call, warm and after an L2 flush
+        dreps = 20
+        rec["device_ms"] = {n: call_device_ms(torch, calls[n][0], dreps)
+                            for n in DEVICE_CLASS_KERNELS}
+        rec["cold_device_ms"] = {
+            n: call_device_ms(torch, calls[n][0], dreps, cold=True)
+            for n in DEVICE_CLASS_KERNELS}
         rec["plain_ms"] = {n: cuda_ms(torch, c[1], plain_reps)
                            if plain_reps else None
                            for n, c in calls.items()}
@@ -655,11 +674,24 @@ def class_sums(recs, what: str = "ms") -> dict:
 def print_classes(recs) -> None:
     def f(v):
         return "not timed" if v is None else f"{v:.4f}"
+
+    def dev(r, n):
+        if n not in DEVICE_CLASS_KERNELS:
+            return ""
+        return (f"device {dev_str(r['device_ms'][n])}, cold "
+                f"{dev_str(r['cold_device_ms'][n])}, ")
     for r in recs:
         print(f"  class {r['s']:2d} B={r['B']:6d}: " + ", ".join(
-            f"{n} {r['ms'][n]:.4f} ms (plain {f(r['plain_ms'][n])}, bound "
-            f"{r['bound_ms'][n]:.4f} {r['bound_by'][n]})"
-            for n in CLASS_KERNELS), flush=True)
+            f"{n} {r['ms'][n]:.4f} ms ({dev(r, n)}plain "
+            f"{f(r['plain_ms'][n])}, bound {r['bound_ms'][n]:.4f} "
+            f"{r['bound_by'][n]})" for n in CLASS_KERNELS), flush=True)
+    for n in DEVICE_CLASS_KERNELS:
+        print(f"  {n} class sums: call {sum(r['ms'][n] for r in recs):.4f} "
+              f"ms, device "
+              f"{dev_str(dev_sum(r['device_ms'][n] for r in recs))}, cold "
+              f"{dev_str(dev_sum(r['cold_device_ms'][n] for r in recs))}, "
+              f"bound {sum(r['bound_ms'][n] for r in recs):.4f}",
+              flush=True)
 
 
 def build_plans_phase(torch, dev, report):
@@ -782,6 +814,9 @@ def run_presel(torch, dev, pic, bd, reps, plain_reps):
                                      out=out[off:off + r["B"]])
                 off += r["B"]
         launch_ms = cuda_ms(torch, picture, reps)
+        # the picture's launches on the device, warm and after an L2 flush
+        device_ms = call_device_ms(torch, picture, 20)
+        cold_device_ms = call_device_ms(torch, picture, 20, cold=True)
         pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         fetch, pageable, whole = [], [], []
         for _ in range(reps):
@@ -800,6 +835,7 @@ def run_presel(torch, dev, pic, bd, reps, plain_reps):
             whole.append((time.perf_counter() - t0) * 1e3)
         pic_rec = {"classes": len(recs), "B": total,
                    "cost_bytes": total * 67 * 4, "launch_ms": launch_ms,
+                   "device_ms": device_ms, "cold_device_ms": cold_device_ms,
                    "fetch_ms": min(fetch), "fetch_pageable_ms": min(pageable),
                    "frame_presel_ms": min(whole)}
     return recs, pic_rec
@@ -1785,11 +1821,43 @@ def encode(torch, tag, clip, w, h, frames, qp, preset, extra, plan=False):
     return enc, enc.encode_seconds
 
 
+def old_k3_streams(torch, kernels, cases) -> None:
+    """The all-intra faster encodes of `cases` ({tag: (clip, w, h,
+    frames)}, already encoded under tag) again with the older package's
+    K3 reference entry in device planning (intra_plan.plan_trial_refs
+    swapped for the older wrapper, which launches the older kernel):
+    each stream byte-identical to the current kernel's, and the current
+    K3 never launched."""
+    from vvenc_tpu_torch.ops import intra_plan as P
+    current = P.plan_trial_refs
+    P.plan_trial_refs = old_module("ops.intra_plan").plan_trial_refs
+    try:
+        for tag, (clip, w, h, frames) in cases.items():
+            kernels.reset_launches()
+            encode(torch, f"{tag}_old_k3", clip, w, h, frames, 37, "faster",
+                   ["--intra-period", "1"], plan=True)
+            if kernels.launches["plan_trial_refs"]:
+                fail(f"{tag}: the current K3 launched in the older K3's run")
+            folder = os.path.dirname(clip)
+            with open(os.path.join(folder, f"{tag}.266"), "rb") as f:
+                new = f.read()
+            with open(os.path.join(folder, f"{tag}_old_k3.266"), "rb") as f:
+                old = f.read()
+            if new != old:
+                fail(f"{tag}: the stream with the older K3 reference entry "
+                     f"({len(old)} bytes) differs from the current one's "
+                     f"({len(new)} bytes)")
+            print(f"phase 4: {tag} with the older K3 reference entry: "
+                  f"byte-identical ({len(new)} bytes)", flush=True)
+    finally:
+        P.plan_trial_refs = current
+
+
 # the redesigned kernels that --old-csrc sets against an older build
 # (their C entries kept their signatures)
 OLD_SOURCES = ("frame_me", "mode_costs", "transform_batch", "full_search",
                "intra_pred_all", "satd_modes", "mc_batch", "dist_batch",
-               "quant_batch")
+               "quant_batch", "plan_trial")
 # the name the older checkout's package is imported under
 OLD_PACKAGE = "old_vvenc_tpu_torch"
 
@@ -1852,41 +1920,52 @@ def profiled(torch, call, reps: int) -> dict:
             for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
+# the L2 flush of call_device_ms: its buffer and its kernels' names,
+# learnt once a process
+_FLUSH: dict = {}
+
+
 def call_device_ms(torch, fn, reps: int, cold: bool = False):
     """Device milliseconds per fn() call from reps calls (torch.profiler's
     CUDA activity, after a warm-up call): for each kernel the profiler
     recorded, its launches a call k (its record count over reps, rounded)
     times its mean time a record, summed.  The profiler on the H100 has
-    kept one record fewer than there were launches of each kernel in a
-    session (reps - 1 of reps), so a count may fall one short of k *
-    reps; a count further off, k = 0 or no record at all means records
-    were lost.  The session is then taken once more; a second loss
-    prints each kernel with its record count (or that none was
-    recorded) and gives None (printed as not measured).  With cold, a
+    kept a few records fewer than there were launches of each kernel in a
+    session (19 of 20 at first; 18, then 17 of 20 late in a run that
+    times K3 and K4 per class), so a count may fall max(1, reps // 4)
+    short of k * reps, which still leaves k unambiguous; a count
+    further off, k = 0 or no record at all means records were lost.  The
+    session is then taken once more; a second loss prints each kernel
+    with its record count (or that none was recorded) and gives None
+    (printed as not measured).  With cold, a
     read of twice the card's L2 cache (a reduction of its own, its
-    kernels learnt from a session of their own and left out) precedes
+    kernels learnt once a process from a session of their own and left
+    out) precedes
     each call, so that fn reads its inputs from device memory; a read,
     not a write, so that no dirty line is left for fn's misses to write
     back (after a write, the cold times held about the inputs' bytes
     again)."""
     skip, call = set(), fn
     if cold:
-        l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
-                     50 << 20)
-        flush = torch.zeros(2 * l2, dtype=torch.uint8, device="cuda")
+        if not _FLUSH:
+            l2 = getattr(torch.cuda.get_device_properties(0),
+                         "L2_cache_size", 50 << 20)
+            flush = torch.zeros(2 * l2, dtype=torch.uint8, device="cuda")
+            for _ in range(2):
+                names = set(profiled(
+                    torch, lambda: flush.sum(dtype=torch.int32), 3))
+                if names:
+                    _FLUSH.update(tensor=flush, names=names)
+                    break
+            else:
+                print("  device time not measured: 3 calls of the L2 flush "
+                      "recorded no device time", flush=True)
+                return None
+        flush, skip = _FLUSH["tensor"], _FLUSH["names"]
 
         def call():
             flush.sum(dtype=torch.int32)
             fn()
-        for _ in range(2):
-            skip = set(profiled(torch, lambda: flush.sum(dtype=torch.int32),
-                                3))
-            if skip:
-                break
-        else:
-            print("  device time not measured: 3 calls of the L2 flush "
-                  "recorded no device time", flush=True)
-            return None
     fn()
     torch.cuda.synchronize()
     for attempt in range(2):
@@ -1895,7 +1974,7 @@ def call_device_ms(torch, fn, reps: int, cold: bool = False):
         total, odd = 0.0, []
         for key, (count, us) in recs.items():
             k = round(count / reps)
-            if k < 1 or abs(count - k * reps) > 1:
+            if k < 1 or abs(count - k * reps) > max(1, reps // 4):
                 odd.append(f"{key[:60]} x{count}")
             else:
                 total += k * us / count
@@ -1975,11 +2054,13 @@ def kernel_pair(okern, src: str, symbol: str, argtypes, args_of,
 
 
 def old_new_case(torch, label, call, outs, public, bound, reps, turn=None,
-                 rounds=1, device=None, cold=False, timed=True, **extra):
+                 rounds=1, device=None, cold=False, timed=True, same=None,
+                 **extra):
     """One shape of the old/new comparison.  call(v) launches the old (v
     == "old") or the new kernel with the wrapper's arguments into outs[v]
     (a tensor or a tuple of them); the run fails unless both outputs are
-    equal.  Unless timed is False, returns the record: both timed in
+    equal (same(old, new) in place of torch.equal on every tensor where
+    given).  Unless timed is False, returns the record: both timed in
     turns, old, new, new, old (`rounds` rounds of `turn` calls, reps by
     default, averaged), the device time of one call alone (device(v) in
     place of call(v) where given; with cold also after an L2 flush), the
@@ -1989,7 +2070,8 @@ def old_new_case(torch, label, call, outs, public, bound, reps, turn=None,
     torch.cuda.synchronize()
     pair = [o if isinstance(o, tuple) else (o,)
             for o in (outs["old"], outs["new"])]
-    if not all(torch.equal(a, b) for a, b in zip(*pair)):
+    if not (same(*pair) if same is not None else
+            all(torch.equal(a, b) for a, b in zip(*pair))):
         fail(f"{label}: the new kernel's output != the old kernel's")
     if not timed:
         return None
@@ -2310,11 +2392,11 @@ def old_new_k7k10(torch, dev, okern, x10, x8, k6_cases, reps) -> dict:
     return rec
 
 
-def print_public(rec: dict) -> None:
+def print_public(rec: dict, turn: int = 2000) -> None:
     """The public calls of an old_new_k* record, old against new."""
     for tag, r in rec["public"].items():
         print(f"  public {tag}, the older package's wrapper against the "
-              "current one, 2000-call turns, three rounds: old "
+              f"current one, {turn}-call turns, three rounds: old "
               + ", ".join(f"{v:.5f}" for v in r["old_ms"]) + " ms; new "
               + ", ".join(f"{v:.5f}" for v in r["ms"]) + " ms")
 
@@ -2420,6 +2502,169 @@ def print_resources() -> dict:
     return out
 
 
+def plan_shapes() -> list:
+    """Phase 3's planning shapes: (tag, label, luma frames, bit depth, the
+    plan's QP, lambda, classes, timing calls, plain timing calls) of 4
+    smooth 1920x1080 frames at 8 and at 10 bits (every class 4..64),
+    config 1's plan batch (10 frames of 416x240, 10-bit internal, classes
+    min QT .. 64) and one of its pictures (a streaming encode's plan).
+    QP 37 codes its I slices at 37 + intra_qp_offset; the plan's QP is
+    that plus 6 per bit above 8."""
+    from vvenc_tpu_torch.encoder.intra_encoder import (EncoderConfig,
+                                                       lambda_for_qp)
+    from vvenc_tpu_torch.ops import intra_plan as P
+    slice_qp = 37 + EncoderConfig.intra_qp_offset
+    out = []
+    for bd in (8, 10):
+        out.append((f"1080p_{bd}", f"1920x1080 x4, {bd}-bit",
+                    luma_frames(1920, 1080, 4, bd, seed=11 + bd), bd,
+                    slice_qp + 6 * (bd - 8),
+                    float(np.float32(lambda_for_qp(slice_qp, bd))),
+                    (4, 8, 16, 32, 64), 3, 0))
+    cw, ch, cbd = 416, 240, 10
+    csizes = tuple(P._plan_sizes(cw, ch, 64, EncoderConfig.min_qt))
+    clmbda = float(np.float32(lambda_for_qp(slice_qp, cbd)))
+    csrcs = luma_frames(cw, ch, 10, cbd, seed=1)
+    for tag, frames, plain_reps in (("config1_batch", csrcs, 5),
+                                    ("config1_picture", csrcs[:1], 0)):
+        out.append((tag, f"config 1's plan "
+                    f"{'batch' if len(frames) > 1 else 'picture'} "
+                    f"({len(frames)} x {cw}x{ch}, {cbd}-bit)", frames, cbd,
+                    slice_qp + 6 * (cbd - 8), clmbda, csizes, 50,
+                    plain_reps))
+    return out
+
+
+def class_batch(torch, dev, srcs, s, lmbda):
+    """Planning's inputs of class s on frames srcs (the route's own
+    tiling, ops/intra_plan._class_inputs): blocks, tops, lefts, lambda
+    and lambda_sad per candidate."""
+    from vvenc_tpu_torch.ops import intra_plan as P
+    H, W = srcs[0].shape
+    planes = torch.from_numpy(np.stack(
+        [np.pad(x, P.PAD, mode="edge") for x in srcs]).astype(np.int16)
+    ).to(dev)
+    blocks, tops, lefts = P._class_inputs(planes, s, W, H)
+    B = blocks.shape[0]
+    lm = torch.full((B,), lmbda, dtype=torch.float32, device=dev)
+    ls = torch.full((B,), float(np.float32(lmbda) ** 0.5),
+                    dtype=torch.float32, device=dev)
+    return blocks, tops, lefts, lm, ls
+
+
+def old_new_k3(torch, dev, okern) -> dict:
+    """K3's two entries against the older package's kernels (okern) on
+    every class of plan_shapes() through old_new_case with the wrappers'
+    arguments (the reference entry with every constant on its own,
+    vt_plan_trial_refs, as the older wrapper passed them:
+    intra_plan.refs_launch_args): modes equal and costs within COST_RTOL
+    of the old kernel's (the f32 log2 sums run in another order); both
+    timed in turns,
+    device time warm and cold.  The run fails where a class of the
+    reference entry takes more device time than the old kernel's, warm
+    or cold, by more than K3_NOISE.  Then the public plan_trial_refs on
+    config 1's batch and picture, the older package's wrapper against
+    the current one in turns of 200 calls, three rounds.  Returns
+    {entry: {tag: record}}."""
+    from vvenc_tpu_torch.ops import intra_plan as P
+    from vvenc_tpu_torch.ops import intra_presel as S
+    from vvenc_tpu_torch.ops import kernels
+    from vvenc_tpu_torch.ops.tables import device_tables
+    oP = old_module("ops.intra_plan")
+    k = P.PLAN_K
+    rec = {"plan_trial_refs": {}, "plan_trial": {}, "public": {}}
+
+    def close(a, b):
+        rel = ((a[1] - b[1]).abs() / b[1].abs().clamp_min(1e-30)).max()
+        return torch.equal(a[0], b[0]) and rel.item() <= COST_RTOL
+
+    def outputs(B):
+        return {v: (torch.empty((B, k), dtype=torch.int32, device=dev),
+                    torch.empty((B, k), dtype=torch.float32, device=dev))
+                for v in ("old", "new")}
+    for tag, label, srcs, bd, qp, lmbda, sizes, reps, _ in plan_shapes():
+        for s in sizes:
+            blocks, tops, lefts, lm, ls = class_batch(torch, dev, srcs, s,
+                                                      lmbda)
+            B = blocks.shape[0]
+            satd = S.presel_costs(blocks, tops, lefts, s, s, bd)
+            outs = outputs(B)
+            argv = {v: P.refs_launch_args(blocks, tops, lefts, satd, lm, ls,
+                                          *outs[v], s, s, qp, bd, True, k)
+                    for v in outs}
+            new_call = (lambda: P.plan_trial_refs(
+                blocks, tops, lefts, satd, lm, ls, s, s, qp, bd, True, k))
+            r = old_new_case(
+                torch, f"K3 plan_trial_refs ({label}, {s}x{s})",
+                kernel_pair(okern, "plan_trial", "vt_plan_trial_refs",
+                            P._K3R_ARGS, lambda v: argv[v]), outs,
+                new_call, plan_bound_ms(B, s, k, "plan_trial_refs")[0],
+                20, turn=reps, cold=True, same=close, B=B)
+            for key in ("device_ms", "cold_device_ms"):
+                new, old = r[key], r[f"old_{key}"]
+                if new is not None and old is not None and \
+                        new > old * (1 + K3_NOISE):
+                    fail(f"K3 plan_trial_refs ({label}, {s}x{s}): {key} "
+                         f"{new:.4f} ms against the parent's {old:.4f}")
+            rec["plan_trial_refs"][f"{tag} {s}x{s}"] = r
+            if tag.startswith("config1"):
+                old_call = (lambda: oP.plan_trial_refs(
+                    blocks, tops, lefts, satd, lm, ls, s, s, qp, bd, True,
+                    k))
+                rounds = [in_turns(torch, old_call, new_call, 200)
+                          for _ in range(3)]
+                rec["public"][f"plan_trial_refs {tag} {s}x{s}"] = {
+                    "old_ms": [x[0] for x in rounds],
+                    "ms": [x[1] for x in rounds]}
+            # the preds form on K1's predictions
+            preds = S.predict_all_modes(tops, lefts, s, s, bd)
+            sk = S.satd_batch(blocks, preds, s, s)
+            t = device_tables(s, s, dev)
+            p = P._trial_params(s, s, qp, bd, True)
+            tw, th = t["tr"][(s, p["trh"])], t["tr"][(s, p["trv"])]
+            outs2 = outputs(B)
+            argv2 = {v: (
+                blocks.data_ptr(), preds.data_ptr(), sk.data_ptr(),
+                lm.data_ptr(), ls.data_ptr(), t["mode_bits"].data_ptr(),
+                tw.data_ptr(), th.data_ptr(), outs2[v][0].data_ptr(),
+                outs2[v][1].data_ptr(), B, 67, s, s, k, p["shift1"],
+                p["shift2"], p["ishift2"], p["qbits"], p["qscale"],
+                p["qadd"], p["dshift"], p["dscale"], p["maxval"], P.RATE_C0,
+                P.RATE_C1, P.RATE_C2, kernels.stream_ptr(outs2[v][1]))
+                for v in outs2}
+            rec["plan_trial"][f"{tag} {s}x{s}"] = old_new_case(
+                torch, f"K3 plan_trial ({label}, {s}x{s})",
+                kernel_pair(okern, "plan_trial", "vt_plan_trial",
+                            P._K3_ARGS, lambda v: argv2[v]), outs2,
+                lambda: P.plan_trial(blocks, preds, sk, lm, ls, s, s, qp, bd,
+                                     True, k),
+                plan_bound_ms(B, s, k)[0], 20, turn=reps, cold=True,
+                same=close, B=B)
+            del preds
+    return rec
+
+
+def print_old_new_k3(cmp: dict) -> None:
+    """Per plan shape, the class sums of old_new_k3's records, old ->
+    new (call, device warm and cold), then the per-class lines."""
+    for n in ("plan_trial_refs", "plan_trial"):
+        shapes = dict.fromkeys(t.rsplit(" ", 1)[0] for t in cmp[n])
+        for shape in shapes:
+            rs = [r for t, r in cmp[n].items()
+                  if t.rsplit(" ", 1)[0] == shape]
+            print(f"  {n} {shape}, {len(rs)} classes: call "
+                  f"{sum(r['old_ms'] for r in rs):.4f} -> "
+                  f"{sum(r['ms'] for r in rs):.4f} ms, device "
+                  f"{dev_str(dev_sum(r['old_device_ms'] for r in rs))} -> "
+                  f"{dev_str(dev_sum(r['device_ms'] for r in rs))}, cold "
+                  f"{dev_str(dev_sum(r['old_cold_device_ms'] for r in rs))}"
+                  f" -> {dev_str(dev_sum(r['cold_device_ms'] for r in rs))}"
+                  f"; public {sum(r['public_ms'] for r in rs):.4f}; bound "
+                  f"{sum(r['bound_ms'] for r in rs):.5f}", flush=True)
+    print_old_new(cmp, ("plan_trial_refs", "plan_trial"))
+    print_public(cmp, 200)
+
+
 def k3_k4_phase(torch, dev, report):
     """Phase 3's planning kernels (the fused route beside K1 -> K2 ->
     K3; 1080p at 8 and 10 bits, config 1's plan batch and one of its
@@ -2427,14 +2672,9 @@ def k3_k4_phase(torch, dev, report):
     1080p 10-bit picture and an 832x480 8-bit crop) against their plain
     versions, timed per class, with the resources of K3's and K4's
     kernels per class."""
-    from vvenc_tpu_torch.encoder.intra_encoder import (EncoderConfig,
-                                                       lambda_for_qp)
     from vvenc_tpu_torch.ops import intra_plan as P
     k = P.PLAN_K
-    # QP 37 codes its I slices at 37 + intra_qp_offset; the plan's QP is
-    # that plus 6 per bit above 8
-    slice_qp = 37 + EncoderConfig.intra_qp_offset
-    sizes = (4, 8, 16, 32, 64)
+    W, H = 1920, 1080
 
     def report_run(what, recs, runs, sizes, W, H, lmbdas):
         """Plan tables of the route and of K1 -> K2 -> K3 against the
@@ -2470,40 +2710,26 @@ def k3_k4_phase(torch, dev, report):
         print_classes(recs)
         return flips, old_flips
 
-    # phase 3: kernels against plain versions at 1080p, 8 and 10 bits
-    W, H, F = 1920, 1080, 4
+    # phase 3: kernels against plain versions at 1080p, 8 and 10 bits,
+    # then at the main path's shape: config 1's frame-parallel all-intra
+    # encode plans its 10 frames in one batch, a streaming encode
+    # (VVEncImpl) one picture at a time
     report["phase3"] = []
-    for bd in (8, 10):
-        qp = slice_qp + 6 * (bd - 8)
-        lmbda = float(np.float32(lambda_for_qp(slice_qp, bd)))
-        srcs = luma_frames(W, H, F, bd, seed=11 + bd)
+    for tag, label, srcs, bd, qp, lmbda, csizes, reps, plain_reps in \
+            plan_shapes():
+        fh, fw = srcs[0].shape
         recs, runs = run_classes(
-            torch, dev, srcs, bd, qp, lmbda, sizes, True, k, reps=3,
-            plain_reps=0, check=True)
-        flips, old_flips = report_run(f"{W}x{H} x{F}, {bd}-bit", recs, runs,
-                                      sizes, W, H, [lmbda] * F)
-        report["phase3"].append({"bit_depth": bd, "flips": flips,
-                                 "old_flips": old_flips, "classes": recs})
-
-    # the main path's shape: config 1's frame-parallel all-intra encode
-    # plans its 10 frames in one batch (416x240, 10-bit internal,
-    # classes min QT .. 64, one launch of each kernel per class); a
-    # streaming encode (VVEncImpl) plans one picture at a time
-    cw, ch, cbd, cf = 416, 240, 10, 10
-    csizes = tuple(P._plan_sizes(cw, ch, 64, EncoderConfig.min_qt))
-    clmbda = float(np.float32(lambda_for_qp(slice_qp, cbd)))
-    csrcs = luma_frames(cw, ch, cf, cbd, seed=1)
-    for tag, frames, plain_reps in (("config1_batch", csrcs, 5),
-                                    ("config1_picture", csrcs[:1], 0)):
-        recs, runs = run_classes(
-            torch, dev, frames, cbd, slice_qp + 6 * (cbd - 8), clmbda,
-            csizes, True, k, reps=50, plain_reps=plain_reps, check=True)
-        flips, old_flips = report_run(
-            f"config 1's plan {'batch' if len(frames) > 1 else 'picture'} "
-            f"({len(frames)} x {cw}x{ch}, {cbd}-bit)", recs, runs, csizes,
-            cw, ch, [clmbda] * len(frames))
-        report[tag] = {"flips": flips, "old_flips": old_flips,
-                       "classes": recs}
+            torch, dev, srcs, bd, qp, lmbda, csizes, True, k, reps=reps,
+            plain_reps=plain_reps, check=True)
+        flips, old_flips = report_run(label, recs, runs, csizes, fw, fh,
+                                      [lmbda] * len(srcs))
+        if tag.startswith("1080p"):
+            report["phase3"].append({"bit_depth": bd, "flips": flips,
+                                     "old_flips": old_flips,
+                                     "classes": recs})
+        else:
+            report[tag] = {"flips": flips, "old_flips": old_flips,
+                           "classes": recs}
     crecs = report["config1_batch"]["classes"]
     build_plans_phase(torch, dev, report)
 
@@ -2524,7 +2750,9 @@ def k3_k4_phase(torch, dev, report):
           f"8-bit crop, the gathered entry too; gathered per picture "
           f"{gms:.3f} ms (bound {gbound:.3f} ms, {gby}); plane form per "
           f"picture {pms:.3f} ms summed over classes, "
-          f"{ppic['launch_ms']:.3f} ms launched back to back, bound "
+          f"{ppic['launch_ms']:.3f} ms launched back to back (device "
+          f"{dev_str(ppic['device_ms'])}, cold "
+          f"{dev_str(ppic['cold_device_ms'])}), bound "
           f"{pbound:.3f} ms ({pby}), plain "
           f"{sum(r['plain_ms'] for r in precs):.3f} ms; fetch of "
           f"{ppic['cost_bytes'] / 1e6:.1f} MB {ppic['fetch_ms']:.3f} ms "
@@ -2549,7 +2777,7 @@ def main(argv=None) -> int:
     ap.add_argument("--old-csrc", default=None,
                     help="the vvenc_tpu_torch/csrc directory of an older "
                          "checkout: also import that package, build its "
-                         "K1, K2 and K5-K11 sources and "
+                         "K1-K3 and K5-K11 sources and "
                          "set them against the current ones (outputs equal, "
                          "times in turns, resources)")
     args = ap.parse_args(argv)
@@ -2770,6 +2998,21 @@ def main(argv=None) -> int:
         for n in ("quant_batch", "dequant_batch", "sse_batch", "sad_batch"):
             cmp[n] = k710[n]
         cmp["public"].update(k710["public"])
+        k3 = old_new_k3(torch, dev, okern)
+        print("phase 3: K3 plan_trial_refs and plan_trial against the "
+              f"kernels of {args.old_csrc}: the reference entry's modes "
+              f"equal and costs within {COST_RTOL}, the preds form's "
+              "too, on every class of the 1080p x4 batches (8 "
+              "and 10 bits), config 1's plan batch and one of its "
+              "pictures; the reference entry's device time, warm and "
+              f"cold, within {K3_NOISE:.0%} of the old one's or better in "
+              "every class; old -> new ms, called alike and timed old, new, "
+              "new, old (device time of the kernel alone; cold: after an "
+              "L2 flush; the public function; bound)", flush=True)
+        print_old_new_k3(k3)
+        for n in ("plan_trial_refs", "plan_trial"):
+            cmp[n] = k3[n]
+        cmp["public"].update(k3["public"])
         for label, r in cmp["resources"].items():
             print(resource_line(f"{label} (old)", r))
         report["old_new"] = cmp
@@ -2789,6 +3032,10 @@ def main(argv=None) -> int:
     _, report["hd"] = encode_phase(
         torch, kernels, DEV, "hd_faster", clip_hd, 1920, 1080, 4, 37,
         "faster", ["--intra-period", "1"], PLAN_KERNELS, plan=True)
+    if old:
+        old_k3_streams(torch, kernels, {
+            "config1": (clip1, 416, 240, 10),
+            "hd_faster": (clip_hd, 1920, 1080, 4)})
     enc, report["hd_medium"] = encode_phase(
         torch, kernels, DEV, "hd_medium", clip_hd, 1920, 1080, 2, 37,
         "medium", ["--intra-period", "1"], ("presel_costs",))

@@ -683,15 +683,22 @@ def test_plan_trial_refs_matches_plain(cuda, s, B, bd, qp):
     assert torch.equal(mk, mr) and torch.equal(mk, mp)
     assert torch.equal(ck, cp)
     torch.testing.assert_close(ck, cr, rtol=1e-5, atol=0)
+    if B:
+        # the C entry with every constant on its own gives the parameter
+        # block's results
+        mo, co = _refs_entry(blocks, tops, lefts, satd, lm, ls, s, s, qp, bd,
+                             2)
+        assert torch.equal(mo, mk) and torch.equal(co, ck)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("k", [1, 3, 67])
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (32, 32),
                                  (64, 64), (16, 8), (8, 4)])
 def test_plan_trial_refs_ties_and_rectangles(cuda, w, h, k):
-    """Tied SATD rows (ties to the lowest mode), k = 1 and 3, and two
-    rectangular classes (the warp route, references LPAD wide)."""
+    """Tied SATD rows (ties to the lowest mode), k = 1, 3 and every mode
+    (67), and two rectangular classes (the warp route, references LPAD
+    wide)."""
     rng = np.random.RandomState(w + 5 * h + k)
     B, bd = 29, 10
     tops, lefts, src = (torch.from_numpy(a).to(cuda)
@@ -709,6 +716,102 @@ def test_plan_trial_refs_ties_and_rectangles(cuda, w, h, k):
     assert torch.equal(mk, mr)
     assert mk[1].tolist() == list(range(k))
     torch.testing.assert_close(ck, cr, rtol=1e-5, atol=0)
+
+
+def _refs_entry(blocks, tops, lefts, satd, lm, ls, w, h, qp, bd, k,
+                fill=True):
+    """vt_plan_trial_refs (every constant on its own) into outputs filled
+    with -1 and NaN (fill) or left uninitialised, with its launch checked;
+    returns (modes, costs)."""
+    B = blocks.shape[0]
+    dev = blocks.device
+    modes = torch.empty((B, k), dtype=torch.int32, device=dev)
+    costs = torch.empty((B, k), dtype=torch.float32, device=dev)
+    if fill:
+        modes.fill_(-1)
+        costs.fill_(float("nan"))
+    fn = kernels.function("plan_trial", "vt_plan_trial_refs", P._K3R_ARGS)
+    kernels.check("plan_trial", fn(*P.refs_launch_args(
+        blocks, tops, lefts, satd, lm, ls, modes, costs, w, h, qp, bd, True,
+        k)))
+    return modes, costs
+
+
+def _wave(s):
+    """Candidates the reference entry's grid takes in one step at class s:
+    resident blocks an SM x SMs x candidates a block's step (32 at 4x4, 16
+    at 8x8, 1 from 16x16)."""
+    r = kernels.resources("plan_trial", "vt_plan_trial_refs_attrs", s, s)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return r["blocks_per_sm"] * sms * {4: 32, 8: 16}.get(s, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [4, 8, 16, 32, 64])
+def test_plan_trial_refs_persistent_batches(cuda, s):
+    """The persistent grid of K3's reference entry against its plain
+    version at B = 1, B below the SM count, a B that a block's step does
+    not divide, and B one past a full wave of the grid (every block
+    takes a second step, one takes a third); every output written (the
+    outputs filled with -1 and NaN, and left uninitialised)."""
+    bd, qp, wave = 10, 37, _wave(s)
+    for B in sorted({1, 100, 37 * 3, wave + 1}):
+        blocks, tops, lefts, lm, ls = _class_batch(cuda, s, bd, B, s + B)
+        satd = S.presel_costs(blocks, tops, lefts, s, s, bd)
+        mr, cr = P.plan_trial_refs_ref(blocks, tops, lefts, satd, lm, ls, s,
+                                       s, qp, bd, True, 2)
+        for fill in (True, False):
+            mk, ck = _refs_entry(blocks, tops, lefts, satd, lm, ls, s, s, qp,
+                                 bd, 2, fill)
+            torch.cuda.synchronize()
+            assert torch.equal(mk, mr), (s, B, fill)
+            torch.testing.assert_close(ck, cr, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [4, 8, 16, 32, 64])
+def test_plan_trial_refs_wide_references(cuda, s):
+    """tops and lefts wider than LPAD (rows of Lt = LPAD + 7 and Ll =
+    LPAD + 2 ints, so no row starts 16-byte aligned) and a source view 4
+    bytes off 16-byte alignment: the kernel reads the first LPAD of each
+    row and stages the source at any alignment."""
+    bd, B = 8, 45
+    blocks, tops, lefts, lm, ls = _class_batch(cuda, s, bd, B, 7 * s)
+    L = tops.shape[1]
+    rng = np.random.RandomState(s)
+    wt = torch.from_numpy(rng.randint(0, 256, (B, L + 7)).astype(np.int32)) \
+        .to(cuda)
+    wl = torch.from_numpy(rng.randint(0, 256, (B, L + 2)).astype(np.int32)) \
+        .to(cuda)
+    wt[:, :L] = tops
+    wl[:, :L] = lefts
+    flat = torch.empty(B * s * s + 1, dtype=torch.int32, device=cuda)
+    off = flat[1:].view(B, s, s)
+    off.copy_(blocks)
+    satd = S.presel_costs(blocks, tops, lefts, s, s, bd)
+    mr, cr = P.plan_trial_refs_ref(blocks, tops, lefts, satd, lm, ls, s, s,
+                                   22, bd, True, 2)
+    mk, ck = P.plan_trial_refs(off, wt, wl, satd, lm, ls, s, s, 22, bd, True,
+                               2)
+    torch.cuda.synchronize()
+    assert torch.equal(mk, mr)
+    torch.testing.assert_close(ck, cr, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [4, 8, 16, 32, 64])
+def test_plan_trial_refs_resources(cuda, s):
+    """The kernel of each square class and entry: the threads of its
+    design (256; at 16x16 the reference entry's 128, two survivors at a
+    time, and the preds form's 64, a block a candidate), at least two
+    resident blocks an SM (three at 64x64, whose 70 KB of shared memory
+    were sized for three) and at most a few spilled words."""
+    for symbol, t16 in (("vt_plan_trial_refs_attrs", 128),
+                        ("vt_plan_trial_attrs", 64)):
+        r = kernels.resources("plan_trial", symbol, s, s)
+        assert r["threads"] == (t16 if s == 16 else 256), (symbol, r)
+        assert r["blocks_per_sm"] >= (3 if s == 64 else 2), (symbol, r)
+        assert r["local_bytes"] <= 64, (symbol, r)
 
 
 @pytest.mark.cuda

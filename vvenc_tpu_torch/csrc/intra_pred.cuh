@@ -87,6 +87,22 @@ __device__ __forceinline__ int pool_dc(const int* pool, int LPAD, int w,
   return (s + (denom >> 1)) >> ilog2(denom);
 }
 
+// pool_dc by the 32 lanes of a warp (every lane gets the value): the same
+// integer sum, taken a lane a sample
+__device__ __forceinline__ int pool_dc_warp(const int* pool, int LPAD, int w,
+                                            int h, int lane) {
+  const int* top = pool;
+  const int* left = pool + 2 * LPAD;
+  const int denom = w == h ? (w << 1) : (w > h ? w : h);
+  int s = 0;
+  if (w >= h)
+    for (int x = 1 + lane; x <= w; x += 32) s += top[x];
+  if (w <= h)
+    for (int y = 1 + lane; y <= h; y += 32) s += left[y];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return (s + (denom >> 1)) >> ilog2(denom);
+}
+
 // sample (yy, xx) of planar (mode 0) or DC (mode 1) of the candidate
 // whose pool (raw and filtered halves) and DC value are given: planar with
 // its MDIS (filtered references when w*h > 32), both with their PDPC
@@ -156,6 +172,64 @@ __device__ __forceinline__ int pred_sample(const int* pool, int dc,
     }
   }
   return clip(v, 0, maxval);
+}
+
+// R samples of mode `mode` along row `row` of its main orientation (rows
+// along y for planar, DC and the vertical modes, along x for the
+// horizontal ones), columns col0 .. col0 + R - 1 of a square class (w ==
+// h), each equal to pred_sample's: out[i] is sample (y, x) = (row, col0 +
+// i) when the call returns true, (col0 + i, row) when it returns false.
+// An angular run reads its row's taps once and its R + 3 reference values
+// once (neighbouring samples share 3 of their 4 taps' values).
+template <int R>
+__device__ __forceinline__ bool pred_run(const int* pool, int dc,
+                                         const Tables& t, int w, int h,
+                                         int bit_depth, int mode, int row,
+                                         int col0, int* out) {
+  if (mode < 2) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      out[i] = planar_dc_sample(pool, dc, t.LPAD, w, h, bit_depth, mode,
+                                row, col0 + i);
+    return true;
+  }
+  const int maxval = (1 << bit_depth) - 1;
+  const int mi = mode - 2;
+  const int shift = __ldg(t.mode_info + 4 * mi);
+  const int rnd = __ldg(t.mode_info + 4 * mi + 1);
+  const int flags = __ldg(t.mode_info + 4 * mi + 2);
+  const int* rm =
+      t.rm_flat + mi * t.LR + __ldg(t.row_start + mi * t.TM + row) + col0;
+  const int* f = t.filt + (mi * t.TM + row) * 4;
+  const int f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2),
+            f3 = __ldg(f + 3);
+  int ref[R + 3];
+#pragma unroll
+  for (int j = 0; j < R + 3; ++j) ref[j] = (int)(int16_t)pool[__ldg(rm + j)];
+  const bool pdpc = flags & kFlagPdpc;
+  const int tl = pdpc && (flags & kFlagAng0)
+                     ? (int)(int16_t)pool[__ldg(t.rm_flat + mi * t.LR + t.B0)]
+                     : 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int acc = f0 * ref[i] + f1 * ref[i + 1] + f2 * ref[i + 2] +
+                    f3 * ref[i + 3];
+    int v = clip((acc + rnd) >> shift, 0, maxval);
+    if (pdpc) {
+      const int col = col0 + i;
+      const int wl = __ldg(t.pdpc_wl + mi * t.TM + col);
+      if (wl != 0) {
+        const int lval = (int16_t)
+            pool[__ldg(t.side_flat + (mi * t.TM + row) * t.TM + col)];
+        if (flags & kFlagAng0)
+          v = clip(v + ((wl * (lval - tl) + 32) >> 6), 0, maxval);
+        else
+          v = v + ((wl * (lval - v) + 32) >> 6);
+      }
+    }
+    out[i] = clip(v, 0, maxval);
+  }
+  return flags & kFlagVer;
 }
 
 }  // namespace intra_pred

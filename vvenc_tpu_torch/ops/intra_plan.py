@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import os as _os
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -200,6 +201,67 @@ def plan_trial_refs_ref(src_blocks, tops, lefts, satd, lmbda, lmbda_sad,
 
 _K3R_ARGS = ([_P, _P, _I, _P, _I] + [_P] * 8 + [_I] * 14 + [_F] * 3
              + [_I] + [_P] * 6 + [_I] * 4 + [_P])
+# vt_plan_trial_refs_p: the parameter block, src, tops, Lt, lefts, Ll,
+# satd, lmbda, lmbda_sad, modes, costs, B, stream
+_K3P_ARGS = [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P]
+# plan_trial_refs' inputs: (name, dtype, rank)
+_K3R_INPUTS = (("src_blocks", torch.int32, 3), ("tops", torch.int32, 2),
+               ("lefts", torch.int32, 2), ("satd", torch.int32, 2),
+               ("lmbda", torch.float32, 1), ("lmbda_sad", torch.float32, 1))
+
+
+class _RefsParams(ctypes.Structure):
+    """One class's constants of K3's reference entry: the parameter block
+    of vt_plan_trial_refs_p (csrc/plan_trial.cu RefsParams)."""
+    _fields_ = ([(n, _P) for n in ("mode_bits", "tw", "th", "rm_flat",
+                                   "row_start", "filt", "mode_info",
+                                   "pdpc_wl", "side_flat")]
+                + [(n, _I) for n in ("M", "w", "h", "k", "shift1", "shift2",
+                                     "ishift2", "qbits", "qscale", "qadd",
+                                     "dshift", "dscale", "maxval")]
+                + [(n, _F) for n in ("c0", "c1", "c2")]
+                + [(n, _I) for n in ("bit_depth", "LPAD", "LR", "TM", "B0")])
+
+
+@lru_cache(maxsize=None)
+def _refs_params(dev, w, h, qp, bit_depth, implicit_mts, k, M, rates):
+    """(the parameter block, its address, the class's LPAD) of one class
+    on device dev; kept for the life of the process, as the device tables
+    it points into."""
+    t = device_tables(w, h, dev)
+    p = _trial_params(w, h, qp, bit_depth, implicit_mts)
+    prm = _RefsParams(
+        t["mode_bits"].data_ptr(), t["tr"][(w, p["trh"])].data_ptr(),
+        t["tr"][(h, p["trv"])].data_ptr(), t["rm_flat"].data_ptr(),
+        t["row_start"].data_ptr(), t["filt"].data_ptr(),
+        t["mode_info"].data_ptr(), t["pdpc_wl"].data_ptr(),
+        t["side_flat"].data_ptr(), M, w, h, k, p["shift1"], p["shift2"],
+        p["ishift2"], p["qbits"], p["qscale"], p["qadd"], p["dshift"],
+        p["dscale"], p["maxval"], *rates, bit_depth, t["LPAD"], t["LR"],
+        t["TM"], t["B0"])
+    return prm, ctypes.addressof(prm), t["LPAD"]
+
+
+def refs_launch_args(src_blocks, tops, lefts, satd, lmbda, lmbda_sad, modes,
+                     costs, w: int, h: int, qp: int, bit_depth: int = 10,
+                     implicit_mts: bool = True, k: int = 2) -> tuple:
+    """The arguments of the C entry vt_plan_trial_refs (_K3R_ARGS, every
+    constant on its own, from the class's parameter block) for
+    plan_trial_refs' inputs and outputs, for a caller of that entry: the
+    card tests and chip_smoke.py's comparison with an older build."""
+    B, M = satd.shape
+    q = _refs_params(src_blocks.device, w, h, qp, bit_depth,
+                     bool(implicit_mts), k, M,
+                     (RATE_C0, RATE_C1, RATE_C2))[0]
+    return (src_blocks.data_ptr(), tops.data_ptr(), tops.shape[1],
+            lefts.data_ptr(), lefts.shape[1], satd.data_ptr(),
+            lmbda.data_ptr(), lmbda_sad.data_ptr(), q.mode_bits, q.tw, q.th,
+            modes.data_ptr(), costs.data_ptr(), B, q.M, q.w, q.h, q.k,
+            q.shift1, q.shift2, q.ishift2, q.qbits, q.qscale, q.qadd,
+            q.dshift, q.dscale, q.maxval, q.c0, q.c1, q.c2, q.bit_depth,
+            q.rm_flat, q.row_start, q.filt, q.mode_info, q.pdpc_wl,
+            q.side_flat, q.LPAD, q.LR, q.TM, q.B0,
+            kernels.stream_ptr(costs))
 
 
 def plan_trial_refs(src_blocks, tops, lefts, satd, lmbda, lmbda_sad, w: int,
@@ -210,7 +272,9 @@ def plan_trial_refs(src_blocks, tops, lefts, satd, lmbda, lmbda_sad, w: int,
     max(2w, 2h) + 3), all int32, satd [B, 67] int32, lmbda / lmbda_sad
     [B] float32 -> modes [B, k] int32, costs [B, k] float32.  K3's
     reference entry (which predicts only the k survivors, with K1's
-    arithmetic) on a CUDA device, the plain version on the CPU."""
+    arithmetic) on a CUDA device, the plain version on the CPU.  The
+    class's constants go to the kernel as one parameter block, built once
+    per (device, class, QP, bit depth, transform types, k)."""
     ins = (src_blocks, tops, lefts, satd, lmbda, lmbda_sad)
     if {x.device.type for x in ins} == {"cpu"}:
         return plan_trial_refs_ref(*ins, w, h, qp, bit_depth, implicit_mts,
@@ -218,47 +282,34 @@ def plan_trial_refs(src_blocks, tops, lefts, satd, lmbda, lmbda_sad, w: int,
     dev = src_blocks.device
     if dev.type != "cuda":
         raise ValueError(f"plan_trial_refs: no kernel for {dev}")
-    kernels.require(src_blocks, "src_blocks", torch.int32, 3, dev)
-    kernels.require(tops, "tops", torch.int32, 2, dev)
-    kernels.require(lefts, "lefts", torch.int32, 2, dev)
-    kernels.require(satd, "satd", torch.int32, 2, dev)
-    kernels.require(lmbda, "lmbda", torch.float32, 1, dev)
-    kernels.require(lmbda_sad, "lmbda_sad", torch.float32, 1, dev)
+    for x, (name, dtype, ndim) in zip(ins, _K3R_INPUTS):
+        if x.dtype != dtype or x.dim() != ndim or x.device != dev or \
+                not x.is_contiguous():
+            kernels.require(x, name, dtype, ndim, dev)     # raises
     if not (w in (4, 8, 16, 32, 64) and h in (4, 8, 16, 32, 64)):
         raise ValueError(f"plan_trial_refs: block {w}x{h}")
-    t = device_tables(w, h, dev)
     B, M = satd.shape
+    if not 1 <= k <= M <= NUM_MODES:
+        raise ValueError(f"plan_trial_refs: k={k}, M={M}")
+    _, prm, lpad = _refs_params(dev, w, h, qp, bit_depth, bool(implicit_mts),
+                                k, M, (RATE_C0, RATE_C1, RATE_C2))
     if tuple(src_blocks.shape) != (B, h, w) or tops.shape[0] != B or \
             lefts.shape[0] != B or lmbda.shape[0] != B or \
-            lmbda_sad.shape[0] != B or \
-            min(tops.shape[1], lefts.shape[1]) < t["LPAD"]:
+            lmbda_sad.shape[0] != B or min(tops.shape[1], lefts.shape[1]) \
+            < lpad:
         raise ValueError(f"plan_trial_refs: shapes do not match (src "
                          f"{tuple(src_blocks.shape)}, tops "
                          f"{tuple(tops.shape)}, lefts {tuple(lefts.shape)}"
-                         f", satd {tuple(satd.shape)}; LPAD {t['LPAD']})")
-    if not 1 <= k <= M <= NUM_MODES:
-        raise ValueError(f"plan_trial_refs: k={k}, M={M}")
-    p = _trial_params(w, h, qp, bit_depth, implicit_mts)
-    tw = t["tr"][(w, p["trh"])]
-    th = t["tr"][(h, p["trv"])]
+                         f", satd {tuple(satd.shape)}; LPAD {lpad})")
     modes = torch.empty((B, k), dtype=torch.int32, device=dev)
     costs = torch.empty((B, k), dtype=torch.float32, device=dev)
     if B == 0:
         return modes, costs
-    fn = kernels.function("plan_trial", "vt_plan_trial_refs", _K3R_ARGS)
-    err = fn(src_blocks.data_ptr(), tops.data_ptr(), tops.shape[1],
+    fn = kernels.function("plan_trial", "vt_plan_trial_refs_p", _K3P_ARGS)
+    err = fn(prm, src_blocks.data_ptr(), tops.data_ptr(), tops.shape[1],
              lefts.data_ptr(), lefts.shape[1], satd.data_ptr(),
-             lmbda.data_ptr(), lmbda_sad.data_ptr(),
-             t["mode_bits"].data_ptr(), tw.data_ptr(), th.data_ptr(),
-             modes.data_ptr(), costs.data_ptr(),
-             B, M, w, h, k, p["shift1"], p["shift2"], p["ishift2"],
-             p["qbits"], p["qscale"], p["qadd"], p["dshift"], p["dscale"],
-             p["maxval"], RATE_C0, RATE_C1, RATE_C2, bit_depth,
-             t["rm_flat"].data_ptr(), t["row_start"].data_ptr(),
-             t["filt"].data_ptr(), t["mode_info"].data_ptr(),
-             t["pdpc_wl"].data_ptr(), t["side_flat"].data_ptr(),
-             t["LPAD"], t["LR"], t["TM"], t["B0"],
-             kernels.stream_ptr(costs))
+             lmbda.data_ptr(), lmbda_sad.data_ptr(), modes.data_ptr(),
+             costs.data_ptr(), B, kernels.stream_ptr(costs))
     kernels.check("plan_trial", err)
     kernels.count("plan_trial_refs")
     return modes, costs
