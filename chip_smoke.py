@@ -82,7 +82,7 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
 4. The main paths, each through vvenc_tpu_torch.__main__.main with
    --device cuda --verify, the launch counts set to 0 just before and
    read just after, the port's decoder giving back every picture of the
-   encoder's reconstruction; prints fps and the device-time share:
+   encoder's reconstruction; prints fps and the launches:
    - config 1 (all-intra 416x240 8-bit, 10 frames, QP 37, --preset
      faster --intra-period 1): device_rd must resolve to "on", the fused
      SATD and K3's reference entry launch and every plan is consumed;
@@ -104,10 +104,10 @@ Phases; any mismatch or error ends the run with a non-zero exit code:
      without a reference encoder must raise naming the path;
    - the bench twin's (vvenc_tpu_torch.bench) config-1 stage on config
      1's clip: its warm encode with --verify, then 3 timed passes; the
-     median pass's rate above 0, its device-time share in (0, 1], the
-     fused SATD and K3's reference entry launched in it, and the passes'
-     stream config 1's CLI stream above; its record printed on a line of
-     its own (phase 4: bench twin);
+     median pass's rate above 0, the fused SATD and K3's reference
+     entry launched in it, and the passes' stream config 1's CLI stream
+     above; its record printed on a line of its own (phase 4: bench
+     twin);
    - the library entry points: VVEncImpl streaming config 1's options
      (the fused SATD and K3's reference entry must launch in its
      window) and config 2's with
@@ -1619,26 +1619,24 @@ def mesh_phase(torch, dev, kernels, clips, pic, report):
     return counts
 
 
-def encode_phase(torch, kernels, DEV, tag, clip, w, h, frames, qp, preset,
+def encode_phase(torch, kernels, tag, clip, w, h, frames, qp, preset,
                  extra, need, plan=False):
     """One main path: counts to 0, the encode, counts read; every kernel
     in `need` must have launched.  Returns (encoder, record)."""
     kernels.reset_launches()
-    DEV.reset()
     enc, secs = encode(torch, tag, clip, w, h, frames, qp, preset, extra,
                        plan)
     launches = dict(kernels.launches)
-    share = DEV.seconds / secs
     missing = [n for n in need if launches[n] < 1]
     if missing:
         fail(f"{tag}: {missing} never launched: {launches}")
     no_old_route(tag, launches)
     print(f"phase 4: {tag} {w}x{h} x{frames} QP{qp} {preset} "
           f"{' '.join(extra)}: {frames / secs:.3f} fps (encode "
-          f"{secs:.3f} s), device-time share {share:.4f}, launches "
-          f"{launches}, decode == recon", flush=True)
+          f"{secs:.3f} s), launches {launches}, decode == recon",
+          flush=True)
     return enc, {"fps": frames / secs, "encode_seconds": secs,
-                 "device_share": share, "launches": launches}
+                 "launches": launches}
 
 
 def tools_phase(clip, w, h, n, tmp) -> dict:
@@ -1708,17 +1706,17 @@ def bench_twin_phase(clip, tmp) -> dict:
     """The bench twin's config-1 stage on config 1's clip (the stage's
     clip): the warm encode with --verify, then its timed passes, each
     with the launch counts set to 0 before and read after.  Fails unless
-    the median pass ran at a rate above 0 with a device-time share in
-    (0, 1], launched the fused SATD and K3's reference entry and none of
-    K1, K2 and the preds-form K3, and the passes' stream is config 1's
-    CLI stream (tmp/config1.266).  Returns the stage's record."""
+    the median pass ran at a rate above 0, launched the fused SATD and
+    K3's reference entry and none of K1, K2 and the preds-form K3, and
+    the passes' stream is config 1's CLI stream (tmp/config1.266).
+    Returns the stage's record."""
     from vvenc_tpu_torch import bench as TB
     st = TB.STAGES[0]
     work = os.path.join(tmp, "bench_twin")
     os.makedirs(work)
     rec, stream, _ = TB.run_stage(st, clip, work, "cuda")
     launches = rec["launches"]
-    if not (rec["median_fps"] > 0 and 0 < rec["device_share"] <= 1):
+    if not rec["median_fps"] > 0:
         fail(f"bench twin {st.key}: {rec}")
     missing = [n for n in PLAN_KERNELS if not launches.get(n)]
     bad = [n for n in OLD_PLAN_KERNELS if launches.get(n)]
@@ -3020,31 +3018,30 @@ def main(argv=None) -> int:
 
     # phase 4: the main paths through the CLI
     from vvenc_tpu_torch.tools.calibrate_plan import make_clip
-    from vvenc_tpu_torch.utils.devclock import DEV
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     clip1 = os.path.join(tmp, "c1.yuv")
     make_clip(clip1, 416, 240, 10)
     _, report["config1"] = encode_phase(
-        torch, kernels, DEV, "config1", clip1, 416, 240, 10, 37, "faster",
+        torch, kernels, "config1", clip1, 416, 240, 10, 37, "faster",
         ["--intra-period", "1"], PLAN_KERNELS, plan=True)
     clip_hd = os.path.join(tmp, "hd.yuv")
     make_clip(clip_hd, 1920, 1080, 4)
     _, report["hd"] = encode_phase(
-        torch, kernels, DEV, "hd_faster", clip_hd, 1920, 1080, 4, 37,
+        torch, kernels, "hd_faster", clip_hd, 1920, 1080, 4, 37,
         "faster", ["--intra-period", "1"], PLAN_KERNELS, plan=True)
     if old:
         old_k3_streams(torch, kernels, {
             "config1": (clip1, 416, 240, 10),
             "hd_faster": (clip_hd, 1920, 1080, 4)})
     enc, report["hd_medium"] = encode_phase(
-        torch, kernels, DEV, "hd_medium", clip_hd, 1920, 1080, 2, 37,
+        torch, kernels, "hd_medium", clip_hd, 1920, 1080, 2, 37,
         "medium", ["--intra-period", "1"], ("presel_costs",))
     if enc.cfg.intra_presel != "source":
         fail(f"hd_medium: intra_presel resolved to {enc.cfg.intra_presel!r}")
     clip2 = os.path.join(tmp, "c2.yuv")
     make_clip(clip2, 832, 480, 17)
     _, report["config2"] = encode_phase(
-        torch, kernels, DEV, "config2", clip2, 832, 480, 17, 37, "faster",
+        torch, kernels, "config2", clip2, 832, 480, 17, 37, "faster",
         ["--gop-size", "8", "--intra-period", "0", "--set",
          "me_mode=device"], ("frame_me",))
     # config 3 cut from 9 to 3 frames (the IDR and one GOP of 2) to keep
@@ -3052,7 +3049,7 @@ def main(argv=None) -> int:
     clip3 = os.path.join(tmp, "c3.yuv")
     make_clip(clip3, 1920, 1080, 3)
     _, report["config3"] = encode_phase(
-        torch, kernels, DEV, "config3", clip3, 1920, 1080, 3, 32,
+        torch, kernels, "config3", clip3, 1920, 1080, 3, 32,
         "medium", ["--gop-size", "2", "--intra-period", "0", "--qpa", "1",
                    "--wpp", "--threads", "2", "--set", "me_mode=device"],
         ("frame_me",))

@@ -101,7 +101,8 @@ def test_summary_has_bench_py_keys_and_the_records(summary_line):
         assert r["median_fps"] == sorted(r["fps"])[st.passes // 2]
         assert r["spread"] == pytest.approx(
             (max(r["fps"]) - min(r["fps"])) / r["median_fps"])
-        # the plain versions on the CPU: no launch, no device share
+        # the plain versions on the CPU: no launch; the twin reports no
+        # device share on any device
         assert r["launches"] == {} and r["device_share"] is None
     assert out["value"] == out["runs"][c1]["median_fps"]
     assert out["secondary"][c2] == out["runs"][c2]["median_fps"]

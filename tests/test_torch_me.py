@@ -132,23 +132,25 @@ def test_device_me_raises_instead_of_falling_back(monkeypatch):
 
 
 def test_launch_counts_and_device_clock_under_threads():
-    """Wrappers count launches and device sections from the encoder's
-    worker threads: no count is lost, and overlapping sections count
-    their wall time once."""
+    """Wrappers count launches, and PROF records the device sections,
+    from the encoder's worker threads: no count and no record is lost,
+    and each section's record names its own thread and covers its wall
+    time (the device sections are PROF spans since the always-on device
+    clock was retired)."""
     import sys
     import threading
     import time
 
     from vvenc_tpu_torch.ops import kernels
-    from vvenc_tpu_torch.utils.devclock import _DevClock
-    clk = _DevClock()
+    from vvenc_tpu_torch.utils.profiler import Profiler
+    prof = Profiler(True)
     before = kernels.launches["frame_me"]
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     barrier = threading.Barrier(16)
     try:
         def work():
-            with clk.section():
+            with prof.section("device.frame_me"):
                 for _ in range(2000):
                     kernels.count("frame_me")
                 barrier.wait(timeout=30)   # all 16 sections open at once
@@ -162,5 +164,8 @@ def test_launch_counts_and_device_clock_under_threads():
     finally:
         sys.setswitchinterval(old)
     assert kernels.launches["frame_me"] == before + 16 * 2000
-    assert clk.calls == 16
-    assert 0.05 <= clk.seconds < 8 * 0.05
+    recs = prof.records()
+    assert len(recs) == 16 and prof._acc["device.frame_me"][1] == 16
+    assert {r.thread for r in recs} == {t.ident for t in ts}
+    assert all(r.parent is None and r.end_ns - r.start_ns >= 0.05e9
+               for r in recs)

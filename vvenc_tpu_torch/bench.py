@@ -21,11 +21,17 @@ Prints one JSON line last, in the shape of bench.py's: "metric", "value"
 (config 1's median frames/s), "unit", "vs_baseline", "vs_baseline_1t",
 "device_time_fraction", "secondary" (configs 2 and 3: frames/s, the
 reference's and the ratio), plus "runs" (per run every pass's frames/s,
-median, spread, the median pass's device-time share and kernel launches),
+median, spread, "device_share" and the median pass's kernel launches),
 "card" (nvidia-smi's name and power limit) and "host" (CPU count, the
 frame-parallel pool's size per run).  The reference encoder is measured
 only when --ref-bin names one; without it every reference rate and ratio
 is null.
+
+"device_time_fraction" and every "device_share" are null: a host clock
+around the device calls read 0.6-1.6 % of an encode where the card's own
+trace reads 0.03-0.04 %, so the twin reports no device share.  The
+device's busy share of an encode is the benchmark's traced
+`device_idle_share` (benchmark/, torch.profiler's device trace).
 """
 
 from __future__ import annotations
@@ -50,7 +56,6 @@ from .device import resolve_device
 from .ops import kernels
 from .tools.bdrate import find_ref_bin
 from .tools.calibrate_plan import make_clip
-from .utils.devclock import DEV
 
 REF_BIN = "/tmp/refbuild/vvencFFapp"
 
@@ -151,11 +156,11 @@ def wall_limit(key: str, seconds: float, cleanup: str):
 
 def run_stage(st: Stage, clip: str, workdir: str, device: str = "cuda"):
     """The stage on `clip`: the warm encode with --verify, then st.passes
-    timed passes, kernel launch counts and the device clock set to 0
-    before each and read after it.  Returns (record, stream, encoder):
-    record = {"fps": every pass's frames/s, "median_fps", "spread"
-    ((max - min) / median), "device_share" (the median pass's; None on
-    the CPU), "launches" (the median pass's nonzero counts)}."""
+    timed passes, kernel launch counts set to 0 before each and read
+    after it.  Returns (record, stream, encoder): record = {"fps": every
+    pass's frames/s, "median_fps", "spread" ((max - min) / median),
+    "device_share" (None: see the module's docstring), "launches" (the
+    median pass's nonzero counts)}."""
     warm_out = os.path.join(workdir, f"{st.key}_warm.266")
     out = os.path.join(workdir, f"{st.key}.266")
     with wall_limit(st.key, st.limit_s, workdir):
@@ -165,10 +170,9 @@ def run_stage(st: Stage, clip: str, workdir: str, device: str = "cuda"):
         stream = None
         for _ in range(st.passes):
             kernels.reset_launches()
-            DEV.reset()
             dt, enc = encode_once(clip, out, st.w, st.h, st.frames, st.qp,
                                   st.preset, st.extra, device)
-            passes.append((st.frames / dt, DEV.seconds / dt,
+            passes.append((st.frames / dt,
                            {k: v for k, v in kernels.launches.items() if v}))
             with open(out, "rb") as f:
                 got = f.read()
@@ -187,8 +191,7 @@ def run_stage(st: Stage, clip: str, workdir: str, device: str = "cuda"):
     mid = sorted(range(len(passes)), key=lambda i: fps[i])[len(passes) // 2]
     record = {"fps": fps, "median_fps": fps[mid],
               "spread": (max(fps) - min(fps)) / fps[mid],
-              "device_share": passes[mid][1] if device == "cuda" else None,
-              "launches": passes[mid][2]}
+              "device_share": None, "launches": passes[mid][1]}
     return record, stream, enc
 
 

@@ -939,18 +939,19 @@ class IntraEncoder(SequenceOrchestratorMixin):
                     ps.rec[c_][y0b >> sc_:y1b >> sc_]
             if ifp_banded:
                 from ..codec.deblock import deblock_picture
-                cus_ = []
-                for t_ in trees:
-                    if t_ is not None:
-                        _tree_cus(t_, cus_)
-                deblock_picture(
-                    ifp.frec, cus_, slice_qp,
-                    qp_state.chroma_qp(1) - qp_state.qp_bd_offset,
-                    qp_state.chroma_qp(2) - qp_state.qp_bd_offset,
-                    cfg.ctu_size, cfg.bit_depth, ref_pocs=ref_pocs,
-                    is_b=(slice_type == SLICE_B), qp_map=ps.qp_map,
-                    chroma_qp_fn=qp_state.chroma_deblock_qp,
-                    y_band=(y0b, y0b + ctu))
+                with PROF.section("stage.deblock"):
+                    cus_ = []
+                    for t_ in trees:
+                        if t_ is not None:
+                            _tree_cus(t_, cus_)
+                    deblock_picture(
+                        ifp.frec, cus_, slice_qp,
+                        qp_state.chroma_qp(1) - qp_state.qp_bd_offset,
+                        qp_state.chroma_qp(2) - qp_state.qp_bd_offset,
+                        cfg.ctu_size, cfg.bit_depth, ref_pocs=ref_pocs,
+                        is_b=(slice_type == SLICE_B), qp_map=ps.qp_map,
+                        chroma_qp_fn=qp_state.chroma_deblock_qp,
+                        y_band=(y0b, y0b + ctu))
             # progress = bands processed; in banded-deblock mode the last
             # 7 pixel rows of band r may still change when band r+1's
             # horizontal edges filter across the row boundary — the IFP
@@ -1035,11 +1036,13 @@ class IntraEncoder(SequenceOrchestratorMixin):
         # bits.  The stop '1' bit completes the terminator code interval
         # (the flush drops the low byte; '1000...' padding lands the decoded
         # point inside [low, low+256) — vvenc writeByteAlignment semantics).
-        payload, sh.entry_point_offsets = sw.finish()
-        bw = BitWriter()
-        hls.write_slice_header(bw, sh, self.sps, self.pps, is_idr=is_idr)
-        bw.write_byte_alignment()
-        bw.append_bytes(payload)
+        with PROF.section("slice.write"):
+            payload, sh.entry_point_offsets = sw.finish()
+            bw = BitWriter()
+            hls.write_slice_header(bw, sh, self.sps, self.pps,
+                                   is_idr=is_idr)
+            bw.write_byte_alignment()
+            bw.append_bytes(payload)
 
         if cfg.dmvr and ifp is None:
             # refined MVs land in the stored motion field (TMVP source),
@@ -1060,25 +1063,18 @@ class IntraEncoder(SequenceOrchestratorMixin):
                 ps.rec[c][:] = ifp.frec[c]
         elif cfg.deblocking:
             from ..codec.deblock import deblock_picture
-            cus = []
-
-            def _collect(node):
-                if node.cu is not None:
-                    cus.append(node.cu)
-                for c in node.children:
-                    _collect(c)
-                if node.chroma_cu is not None:
-                    cus.append(node.chroma_cu)
-            for t in trees:
-                _collect(t)
-            deblock_picture(ps.rec, cus, slice_qp,
-                            qp_state.chroma_qp(1) - qp_state.qp_bd_offset,
-                            qp_state.chroma_qp(2) - qp_state.qp_bd_offset,
-                            cfg.ctu_size, cfg.bit_depth,
-                            ref_pocs=ref_pocs,
-                            is_b=(slice_type == SLICE_B),
-                            qp_map=ps.qp_map,
-                            chroma_qp_fn=qp_state.chroma_deblock_qp)
+            with PROF.section("stage.deblock"):
+                cus = []
+                for t in trees:
+                    _tree_cus(t, cus)
+                deblock_picture(ps.rec, cus, slice_qp,
+                                qp_state.chroma_qp(1) - qp_state.qp_bd_offset,
+                                qp_state.chroma_qp(2) - qp_state.qp_bd_offset,
+                                cfg.ctu_size, cfg.bit_depth,
+                                ref_pocs=ref_pocs,
+                                is_b=(slice_type == SLICE_B),
+                                qp_map=ps.qp_map,
+                                chroma_qp_fn=qp_state.chroma_deblock_qp)
 
         aps_bytes = b""
         sao_map = None
@@ -1095,10 +1091,10 @@ class IntraEncoder(SequenceOrchestratorMixin):
             with PROF.section("stage.sao"):
                 res = derive_sao(src, ps.rec, cfg.bit_depth, cfg.ctu_size,
                                  lmbda, n_cols, n_rows, tile_of=tile_of)
-            if res is not None:
-                sao_map, (sh.sao_luma, sh.sao_chroma) = res
-                apply_sao_picture(ps.rec, sao_map, cfg.ctu_size,
-                                  cfg.bit_depth, n_cols, n_rows)
+                if res is not None:
+                    sao_map, (sh.sao_luma, sh.sao_chroma) = res
+                    apply_sao_picture(ps.rec, sao_map, cfg.ctu_size,
+                                      cfg.bit_depth, n_cols, n_rows)
         alf_info = None
         cc_ctrl = np.zeros((2, n_rows * n_cols), np.int32)
         cc_counts = [0, 0]
@@ -1106,42 +1102,42 @@ class IntraEncoder(SequenceOrchestratorMixin):
             from .alf_enc import derive_alf, derive_ccalf
             from ..codec.alf import write_alf_aps, apply_alf_picture
             with PROF.section("stage.alf"):
-              res = derive_alf(src, ps.rec, cfg.bit_depth, cfg.ctu_size,
-                             lmbda, nonlinear=cfg.alf_nonlinear)
-            if res is not None:
-                alf_p, enabled, alf_flags, alf_fidx, alf_alt, filt = res
-                sh.alf_enabled = enabled if enabled[0] else [0, 0, 0]
-                if not enabled[0]:
-                    alf_p.new_filter[0] = 0
-                if sh.alf_enabled[0]:
-                    sh.num_alf_aps = 1
-                    sh.luma_aps_ids = [0]
-                    sh.chroma_aps_id = 0
-                    if cfg.ccalf:
-                        # CC-ALF derivation needs the ALF-applied chroma
-                        # and the pre-ALF luma (the filter's input)
-                        applied = {c: ps.rec[c].copy() for c in range(3)}
-                        apply_alf_picture(
-                            applied, cfg.bit_depth, cfg.ctu_size, n_cols,
-                            n_rows, {0: alf_p}, sh.luma_aps_ids,
-                            sh.chroma_aps_id, sh.alf_enabled, 1, alf_flags,
-                            alf_fidx, alf_alt, [0, 0], [0, 0], cc_ctrl)
-                        ccres = derive_ccalf(
-                            src, {1: applied[1], 2: applied[2]}, ps.rec[0],
-                            cfg.bit_depth, cfg.ctu_size, lmbda)
-                        if ccres is not None:
-                            cc_coeff, cc_counts, cc_en, cc_ctrl = ccres
-                            alf_p.cc_coeff = cc_coeff
-                            alf_p.cc_filter_signal = list(cc_counts)
-                            alf_p.cc_filter_count = [max(1, c)
-                                                     for c in cc_counts]
-                            sh.cc_alf_enabled = list(cc_en)
-                            sh.cc_alf_aps_ids = [0, 0]
-                    aps_bw = BitWriter()
-                    write_alf_aps(aps_bw, 0, alf_p)
-                    aps_bytes = make_nal_unit(NalUnitType.PREFIX_APS,
-                                              aps_bw.get_bytes())
-                    alf_info = (alf_flags, alf_fidx, alf_alt, alf_p)
+                res = derive_alf(src, ps.rec, cfg.bit_depth, cfg.ctu_size,
+                                 lmbda, nonlinear=cfg.alf_nonlinear)
+                if res is not None:
+                    alf_p, enabled, alf_flags, alf_fidx, alf_alt, filt = res
+                    sh.alf_enabled = enabled if enabled[0] else [0, 0, 0]
+                    if not enabled[0]:
+                        alf_p.new_filter[0] = 0
+                    if sh.alf_enabled[0]:
+                        sh.num_alf_aps = 1
+                        sh.luma_aps_ids = [0]
+                        sh.chroma_aps_id = 0
+                        if cfg.ccalf:
+                            # CC-ALF derivation needs the ALF-applied chroma
+                            # and the pre-ALF luma (the filter's input)
+                            applied = {c: ps.rec[c].copy() for c in range(3)}
+                            apply_alf_picture(
+                                applied, cfg.bit_depth, cfg.ctu_size, n_cols,
+                                n_rows, {0: alf_p}, sh.luma_aps_ids,
+                                sh.chroma_aps_id, sh.alf_enabled, 1, alf_flags,
+                                alf_fidx, alf_alt, [0, 0], [0, 0], cc_ctrl)
+                            ccres = derive_ccalf(
+                                src, {1: applied[1], 2: applied[2]}, ps.rec[0],
+                                cfg.bit_depth, cfg.ctu_size, lmbda)
+                            if ccres is not None:
+                                cc_coeff, cc_counts, cc_en, cc_ctrl = ccres
+                                alf_p.cc_coeff = cc_coeff
+                                alf_p.cc_filter_signal = list(cc_counts)
+                                alf_p.cc_filter_count = [max(1, c)
+                                                         for c in cc_counts]
+                                sh.cc_alf_enabled = list(cc_en)
+                                sh.cc_alf_aps_ids = [0, 0]
+                        aps_bw = BitWriter()
+                        write_alf_aps(aps_bw, 0, alf_p)
+                        aps_bytes = make_nal_unit(NalUnitType.PREFIX_APS,
+                                                  aps_bw.get_bytes())
+                        alf_info = (alf_flags, alf_fidx, alf_alt, alf_p)
         if sao_map is not None or alf_info is not None:
             # replay the slice entropy with SAO/ALF CTU syntax prepended
             from ..codec.sao import write_sao_ctu
@@ -1174,75 +1170,80 @@ class IntraEncoder(SequenceOrchestratorMixin):
                     al, au_ = cx > tx0, cy > ty0
                 if qpa_res is not None:
                     qp2.set_cu_qp(int(qpa_res.ctu_qps[addr]))
-                if sao_map is not None:
-                    write_sao_ctu(sw.enc, sao_map[addr], sao_map, cx,
-                                  cy, n_cols,
-                                  (sh.sao_luma, sh.sao_chroma),
-                                  cfg.bit_depth, avail_left=al,
-                                  avail_up=au_)
-                if alf_info is not None:
-                    code_alf_ctu(sw.enc, True, addr, n_cols,
-                                 sh.alf_enabled, sh.num_alf_aps, 1,
-                                 alf_info[0], alf_info[1], alf_info[2],
-                                 sh.cc_alf_enabled, cc_counts, cc_ctrl,
-                                 avail_left=al, avail_up=au_)
-                coder2.encode_ctu(sw.enc, ps2, trees[addr])
+                with PROF.section("slice.ctu_encode"):
+                    if sao_map is not None:
+                        write_sao_ctu(sw.enc, sao_map[addr], sao_map, cx,
+                                      cy, n_cols,
+                                      (sh.sao_luma, sh.sao_chroma),
+                                      cfg.bit_depth, avail_left=al,
+                                      avail_up=au_)
+                    if alf_info is not None:
+                        code_alf_ctu(sw.enc, True, addr, n_cols,
+                                     sh.alf_enabled, sh.num_alf_aps, 1,
+                                     alf_info[0], alf_info[1], alf_info[2],
+                                     sh.cc_alf_enabled, cc_counts, cc_ctrl,
+                                     avail_left=al, avail_up=au_)
+                    coder2.encode_ctu(sw.enc, ps2, trees[addr])
                 if tiles_enc is None and cx == 0:
                     sw.after_first_ctu()
-            payload, sh.entry_point_offsets = sw.finish()
-            bw = BitWriter()
-            hls.write_slice_header(bw, sh, self.sps, self.pps,
-                                   is_idr=is_idr)
-            bw.write_byte_alignment()
-            bw.append_bytes(payload)
+            with PROF.section("slice.write"):
+                payload, sh.entry_point_offsets = sw.finish()
+                bw = BitWriter()
+                hls.write_slice_header(bw, sh, self.sps, self.pps,
+                                       is_idr=is_idr)
+                bw.write_byte_alignment()
+                bw.append_bytes(payload)
         if alf_info is not None:
             # apply ALF + CC-ALF exactly as the decoder will
             from ..codec.alf import apply_alf_picture
             alf_flags, alf_fidx, alf_alt, alf_p = alf_info
-            apply_alf_picture(
-                ps.rec, cfg.bit_depth, cfg.ctu_size, n_cols, n_rows,
-                {0: alf_p}, sh.luma_aps_ids,
-                sh.chroma_aps_id
-                if (sh.alf_enabled[1] or sh.alf_enabled[2]) else None,
-                sh.alf_enabled, 1, alf_flags, alf_fidx, alf_alt,
-                sh.cc_alf_enabled, sh.cc_alf_aps_ids, cc_ctrl)
-        if is_idr:
-            nal_type = NalUnitType.IDR_N_LP if self.frames_done == 0 \
-                else NalUnitType.IDR_W_RADL
-        elif tlayer > 0 and tlayer >= max(1, cfg.gop_size.bit_length() - 1):
-            # top-temporal-layer pictures are never referenced in the
-            # dyadic hierarchy -> stepwise temporal sublayer access
-            # (vvenc GOPCfg STSA marking, GOPCfg.cpp xSetSTSA)
-            nal_type = NalUnitType.STSA
-        else:
-            nal_type = NalUnitType.TRAIL
-        au = make_nal_unit(nal_type, bw.get_bytes(),
-                           temporal_id=max(0, tlayer))
-        au = lmcs_aps_bytes + aps_bytes + au
-        if cfg.hrd_timing_sei:
-            from ..bitstream.sei import (write_sei_nal, SeiBufferingPeriod,
-                                         SeiPicTiming, SEI_BUFFERING_PERIOD,
-                                         SEI_PIC_TIMING)
-            msgs = []
+            with PROF.section("stage.alf"):
+                apply_alf_picture(
+                    ps.rec, cfg.bit_depth, cfg.ctu_size, n_cols, n_rows,
+                    {0: alf_p}, sh.luma_aps_ids,
+                    sh.chroma_aps_id
+                    if (sh.alf_enabled[1] or sh.alf_enabled[2]) else None,
+                    sh.alf_enabled, 1, alf_flags, alf_fidx, alf_alt,
+                    sh.cc_alf_enabled, sh.cc_alf_aps_ids, cc_ctrl)
+        with PROF.section("slice.write"):
             if is_idr:
-                msgs.append((SEI_BUFFERING_PERIOD,
-                             SeiBufferingPeriod().payload()))
-            msgs.append((SEI_PIC_TIMING, SeiPicTiming(
-                cpb_removal_delay=self.frames_done,
-                dpb_output_delay=1).payload()))
-            au = write_sei_nal(msgs, prefix=True) + au
-        if getattr(self, "_fgc_sei", None) and is_idr:
-            au = self._fgc_sei + au
-        if cfg.picture_hash:
-            from ..bitstream.sei import (write_sei_nal, compute_picture_hash,
-                                         SeiDecodedPictureHash,
-                                         SEI_DECODED_PICTURE_HASH)
-            sei = SeiDecodedPictureHash(
-                cfg.picture_hash - 1,
-                compute_picture_hash(ps.rec, cfg.bit_depth,
-                                     cfg.picture_hash - 1))
-            au = au + write_sei_nal(
-                [(SEI_DECODED_PICTURE_HASH, sei.payload())], prefix=False)
+                nal_type = NalUnitType.IDR_N_LP if self.frames_done == 0 \
+                    else NalUnitType.IDR_W_RADL
+            elif tlayer > 0 and \
+                    tlayer >= max(1, cfg.gop_size.bit_length() - 1):
+                # top-temporal-layer pictures are never referenced in the
+                # dyadic hierarchy -> stepwise temporal sublayer access
+                # (vvenc GOPCfg STSA marking, GOPCfg.cpp xSetSTSA)
+                nal_type = NalUnitType.STSA
+            else:
+                nal_type = NalUnitType.TRAIL
+            au = make_nal_unit(nal_type, bw.get_bytes(),
+                               temporal_id=max(0, tlayer))
+            au = lmcs_aps_bytes + aps_bytes + au
+            if cfg.hrd_timing_sei:
+                from ..bitstream.sei import (
+                    write_sei_nal, SeiBufferingPeriod, SeiPicTiming,
+                    SEI_BUFFERING_PERIOD, SEI_PIC_TIMING)
+                msgs = []
+                if is_idr:
+                    msgs.append((SEI_BUFFERING_PERIOD,
+                                 SeiBufferingPeriod().payload()))
+                msgs.append((SEI_PIC_TIMING, SeiPicTiming(
+                    cpb_removal_delay=self.frames_done,
+                    dpb_output_delay=1).payload()))
+                au = write_sei_nal(msgs, prefix=True) + au
+            if getattr(self, "_fgc_sei", None) and is_idr:
+                au = self._fgc_sei + au
+            if cfg.picture_hash:
+                from ..bitstream.sei import (
+                    write_sei_nal, compute_picture_hash,
+                    SeiDecodedPictureHash, SEI_DECODED_PICTURE_HASH)
+                sei = SeiDecodedPictureHash(
+                    cfg.picture_hash - 1,
+                    compute_picture_hash(ps.rec, cfg.bit_depth,
+                                         cfg.picture_hash - 1))
+                au = au + write_sei_nal(
+                    [(SEI_DECODED_PICTURE_HASH, sei.payload())], prefix=False)
         if ifp is not None:
             # barrier modes (SAO/ALF) fill the filtered recon only now;
             # publish full progress and leave shared encoder state to the
@@ -2712,17 +2713,19 @@ def _encode_intra_frame_job(args):
     # this picture's plan (use it, no device access here) or planning is
     # off — never probe the backend from a pool worker
     cfg.device_rd = "on" if plan_tables is not None else "off"
-    enc = IntraEncoder(cfg)
-    if plan_tables is not None:
-        enc._plan_bank[poc] = plan_tables
-    enc._fgc_sei = fgc
-    enc.frames_done = poc
-    shift = cfg.bit_depth - cfg.input_bit_depth
-    if prev is not None:
-        enc._orig_by_poc[poc - 1] = {c: prev[c].astype(np.int32) << shift
-                                     for c in range(3)}
-    if prev2 is not None:
-        enc._orig_by_poc[poc - 2] = {c: prev2[c].astype(np.int32) << shift
-                                     for c in range(3)}
-    au = enc.encode_frame(frame)
+    with PROF.picture(poc):
+        with PROF.section("pic.setup"):
+            enc = IntraEncoder(cfg)
+            if plan_tables is not None:
+                enc._plan_bank[poc] = plan_tables
+            enc._fgc_sei = fgc
+            enc.frames_done = poc
+            shift = cfg.bit_depth - cfg.input_bit_depth
+            if prev is not None:
+                enc._orig_by_poc[poc - 1] = {
+                    c: prev[c].astype(np.int32) << shift for c in range(3)}
+            if prev2 is not None:
+                enc._orig_by_poc[poc - 2] = {
+                    c: prev2[c].astype(np.int32) << shift for c in range(3)}
+        au = enc.encode_frame(frame)
     return au, dict(enc.last_rec.rec), len(au) * 8, enc.qp_by_poc[poc]

@@ -115,7 +115,8 @@ class SequenceOrchestratorMixin:
                 self._prefill_plans_async(frames, list(range(len(frames))))
             try:
                 for f in frames:
-                    stream += self.encode_frame(f)
+                    with PROF.picture(self.frames_done):
+                        stream += self.encode_frame(f)
                     self.recs_by_poc[self.frames_done - 1] = \
                         dict(self.last_rec.rec)
             finally:

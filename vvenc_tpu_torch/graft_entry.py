@@ -27,7 +27,6 @@ Both run on "cuda" unless the caller asks for "cpu".
 
 from __future__ import annotations
 
-import time
 from functools import partial
 
 import numpy as np
@@ -68,7 +67,6 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     from .ops.intra_presel import presel_costs
     from .parallel.mesh import (make_mesh2d, search_step,
                                 sharded_encode_step2d, sharded_presel_costs)
-    from .utils.devclock import DEV
 
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -119,25 +117,21 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
                             alf=False, deblocking=True, device_rd="on",
                             me_mode="host", device=device)
         intra_plan.MESH = mesh_or_none
-        DEV.reset()
-        t0 = time.time()
         try:
-            stream = IntraEncoder(cfg).encode_sequence(frames)
+            return IntraEncoder(cfg).encode_sequence(frames)
         finally:
             intra_plan.MESH = None
-        return stream, time.time() - t0, DEV.seconds
 
-    s1, _, d1 = e2e(None)
-    sN, _, dN = e2e(mesh)
-    s1m, _, _ = e2e(make_mesh2d(devices[:1], shape=(1, 1)))
+    s1 = e2e(None)
+    sN = e2e(mesh)
+    s1m = e2e(make_mesh2d(devices[:1], shape=(1, 1)))
     _check(sN == s1, "the mesh-sharded e2e encode diverges from the "
            "unsharded one")
     _check(s1m == s1, "the 1-position-mesh e2e encode diverges")
     _check(len(decode_stream(sN)) == N2, "the stream does not decode")
     print(f"dryrun e2e: encode_sequence over the {n_devices}-position mesh "
           f"byte-identical to the unsharded encode ({len(sN)} bytes, {N2} "
-          f"frames); device plan seconds unsharded {d1:.3f}, mesh "
-          f"{dN:.3f}", flush=True)
+          f"frames)", flush=True)
 
     # 3. the partition-level trial over the (gops x tiles) mesh with the
     #    reconstruction-apron ppermute, against a replay: one tile column

@@ -510,7 +510,6 @@ def build_plans(srcs, bit_depth: int, ctu_size: int, min_qt: int, qp: int,
 
     Returns [FramePlan] per frame."""
     from ..device import resolve_device
-    from ..utils.devclock import DEV
     dev = resolve_device(device)
     mesh = MESH
     if mesh is not None:
@@ -521,18 +520,17 @@ def build_plans(srcs, bit_depth: int, ctu_size: int, min_qt: int, qp: int,
     F = len(srcs)
     H, W = srcs[0].shape
     sizes = tuple(_plan_sizes(W, H, ctu_size, min_qt))
-    with DEV.section():
-        planes = np.stack([np.pad(s, PAD, mode="edge")
-                           for s in srcs]).astype(np.int16)
-        modes_d, costs_d = _plan_batch_core(
-            torch.from_numpy(planes).to(dev),
-            torch.tensor(lmbdas, dtype=torch.float32, device=dev),
-            torch.tensor(lmbda_sads, dtype=torch.float32, device=dev),
-            sizes, W, H, qp, bit_depth, implicit_mts, k, mesh)
-        # the .cpu() fetches synchronise (with a mesh, the collection
-        # waits on every position): the section covers the kernels
-        modes = modes_d.cpu().numpy()
-        costs = costs_d.cpu().numpy()
+    planes = np.stack([np.pad(s, PAD, mode="edge")
+                       for s in srcs]).astype(np.int16)
+    modes_d, costs_d = _plan_batch_core(
+        torch.from_numpy(planes).to(dev),
+        torch.tensor(lmbdas, dtype=torch.float32, device=dev),
+        torch.tensor(lmbda_sads, dtype=torch.float32, device=dev),
+        sizes, W, H, qp, bit_depth, implicit_mts, k, mesh)
+    # the .cpu() fetches synchronise (with a mesh, the collection waits
+    # on every position): the caller's PROF span covers the kernels
+    modes = modes_d.cpu().numpy()
+    costs = costs_d.cpu().numpy()
     return _plan_tables(modes, costs, sizes, W, H, lmbdas)
 
 

@@ -498,13 +498,8 @@ class FramePresel:
     def __init__(self, src_y: np.ndarray, bit_depth: int, shapes,
                  device="cuda"):
         from ..device import resolve_device
-        from ..utils.devclock import DEV
-        self.device = resolve_device(device)
-        with DEV.section():
-            self._build(src_y, bit_depth, shapes)
-
-    def _build(self, src_y: np.ndarray, bit_depth: int, shapes):
         from ..utils.profiler import PROF
+        self.device = resolve_device(device)
         H, W = src_y.shape
         if isinstance(shapes, tuple):
             shapes, mtt = shapes

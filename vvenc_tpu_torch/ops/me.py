@@ -252,25 +252,22 @@ class FrameMe:
     def __init__(self, src_y: np.ndarray, ref_y: np.ndarray, R: int = 64,
                  device="cuda"):
         from ..device import resolve_device
-        from ..utils.devclock import DEV
         dev = resolve_device(device)
         H, W = src_y.shape
         self.bs = ME_BS
         Hc, Wc = (H // self.bs) * self.bs, (W // self.bs) * self.bs
-        with DEV.section():
-            sp = np.pad(src_y, ME_PAD, mode="edge").astype(np.int16)
-            rp = np.pad(ref_y, ME_PAD, mode="edge").astype(np.int16)
-            # pad to the block multiple INSIDE the padded plane view
-            mv, _cost = frame_me(
-                torch.from_numpy(np.ascontiguousarray(
-                    sp[:Hc + 2 * ME_PAD, :Wc + 2 * ME_PAD])).to(dev),
-                torch.from_numpy(np.ascontiguousarray(
-                    rp[:Hc + 2 * ME_PAD, :Wc + 2 * ME_PAD])).to(dev),
-                Wc, Hc, R)
-            # .cpu() waits for this thread's stream: the section covers
-            # the kernel
-            self.mv = mv.cpu().numpy().reshape(Hc // self.bs,
-                                               Wc // self.bs, 2)
+        sp = np.pad(src_y, ME_PAD, mode="edge").astype(np.int16)
+        rp = np.pad(ref_y, ME_PAD, mode="edge").astype(np.int16)
+        # pad to the block multiple INSIDE the padded plane view
+        mv, _cost = frame_me(
+            torch.from_numpy(np.ascontiguousarray(
+                sp[:Hc + 2 * ME_PAD, :Wc + 2 * ME_PAD])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(
+                rp[:Hc + 2 * ME_PAD, :Wc + 2 * ME_PAD])).to(dev),
+            Wc, Hc, R)
+        # .cpu() waits for this thread's stream: the caller's PROF span
+        # covers the kernel
+        self.mv = mv.cpu().numpy().reshape(Hc // self.bs, Wc // self.bs, 2)
 
     def lookup(self, x: int, y: int):
         iy = min(max(y // self.bs, 0), self.mv.shape[0] - 1)
