@@ -1623,20 +1623,23 @@ def encode_phase(torch, kernels, tag, clip, w, h, frames, qp, preset,
                  extra, need, plan=False):
     """One main path: counts to 0, the encode, counts read; every kernel
     in `need` must have launched.  Returns (encoder, record)."""
+    from vvenc_tpu_torch.native import ctu_writer
     kernels.reset_launches()
+    ctu_writer.reset_ctu_writes()
     enc, secs = encode(torch, tag, clip, w, h, frames, qp, preset, extra,
                        plan)
     launches = dict(kernels.launches)
+    writes = dict(ctu_writer.ctu_writes)
     missing = [n for n in need if launches[n] < 1]
     if missing:
         fail(f"{tag}: {missing} never launched: {launches}")
     no_old_route(tag, launches)
     print(f"phase 4: {tag} {w}x{h} x{frames} QP{qp} {preset} "
           f"{' '.join(extra)}: {frames / secs:.3f} fps (encode "
-          f"{secs:.3f} s), launches {launches}, decode == recon",
-          flush=True)
+          f"{secs:.3f} s), launches {launches}, CTU writes {writes}, "
+          "decode == recon", flush=True)
     return enc, {"fps": frames / secs, "encode_seconds": secs,
-                 "launches": launches}
+                 "launches": launches, "ctu_writes": writes}
 
 
 def tools_phase(clip, w, h, n, tmp) -> dict:
@@ -3133,6 +3136,11 @@ def main(argv=None) -> int:
     report["kernels"] = entries
     write_json(json_path, report)
     print(json.dumps({"kernels": entries}))
+    # CTUs of each phase-4 encode that the native CTU writer and the
+    # Python writer coded (native.ctu_writer.ctu_writes)
+    print(json.dumps({"ctu_writes": {
+        t: report[t]["ctu_writes"]
+        for t in ("config1", "hd", "hd_medium", "config2", "config3")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -233,6 +233,9 @@ class TreeNode:
     cu: Optional[CuData] = None
     mode_type_child: int = MODE_ALL  # constraint chosen/derived at this split
     chroma_cu: Optional[CuData] = None  # TREE_C region chroma (SCIPU)
+    # a CTU root decided by the native search: its serialized decision
+    # (native.ctu_writer.Record), which the native writer codes
+    native_rec: Optional[object] = None
 
 
 # ---------------------------------------------------------------------------
@@ -790,6 +793,10 @@ class SyntaxCoder:
         self._qg_cus = []
         self.qg_pred_qp = sh.slice_qp
         self._qg_delta_at = None
+        # native CTU writer: decided at the first CTU (None = not yet),
+        # with its per-picture arrays
+        self._native_writer = None
+        self._native_prep = None
 
     def bdof_applies(self, cu) -> bool:
         """BDOF application condition (vvenc InterPrediction.cpp:465-483,
@@ -1482,7 +1489,24 @@ class SyntaxCoder:
     # -- encoding ----------------------------------------------------------
     def encode_ctu(self, enc, ps: PictureState, node: TreeNode) -> None:
         """Encode one CTU's coding tree; reconstructs into ps as it goes
-        (the encoder relies on ps for neighbor-dependent syntax)."""
+        (the encoder relies on ps for neighbor-dependent syntax).
+
+        A CTU that the native search decided, in a slice whose tools the
+        native writer covers (native.ctu_writer.covers, decided once a
+        picture), is coded by the native writer in one call that releases
+        the GIL; every other CTU by the Python writer below, the
+        specification the native one is held to."""
+        from ..native import ctu_writer
+        if self._native_writer is None:
+            self._native_writer = ctu_writer.covers(self, ps)
+        if self._native_writer and node.native_rec is not None:
+            ctu_writer.write_ctu(self, enc, ps, node)
+            ctu_writer.count("native")
+            return
+        ctu_writer.count("python")
+        self._encode_ctu_py(enc, ps, node)
+
+    def _encode_ctu_py(self, enc, ps: PictureState, node: TreeNode) -> None:
         if self.dual_tree_intra:
             # the QG-start rule fires at the CTU root (cbSubdiv 0 <=
             # qg_subdiv); the dual-tree unit loop skips that root node,

@@ -1276,6 +1276,8 @@ class IntraEncoder(SequenceOrchestratorMixin):
 def _set_tree_qp(node, qp: int) -> None:
     """Stamp the QPA-decided CTU QP on every CU of a search tree (the
     syntax writer codes the cu_qp_delta from these)."""
+    if node.native_rec is not None:
+        node.native_rec.qp = qp
     if node.cu is not None:
         node.cu.qp = qp
     if getattr(node, "chroma_cu", None) is not None:

@@ -1050,6 +1050,12 @@ def search_ctu(searcher, ctu_x: int, ctu_y: int, live_ctx, commit=True,
         node = read_node(ctu_x, ctu_y, ctu, ctu, PartInfo())
     assert state["ti"] == int(out_n[0]) and state["ci"] == int(out_n[1]), \
         "native search serialization mismatch"
+    if commit_flag and coder.is_intra_slice:
+        # the decision as serialized, for the native CTU writer (which
+        # codes CUs whose reconstruction the search staged)
+        from .ctu_writer import Record
+        node.native_rec = Record(out_tree[:state["ti"]].copy(),
+                                 out_coeff[:state["ci"]].copy())
     if wavefront is not None:
         return node, int(out_n[2]), bool(out_n[3])
     return node

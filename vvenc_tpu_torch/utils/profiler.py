@@ -176,6 +176,9 @@ class Profiler:
                             100.0 * tot / max(wall, 1e-9)))
         lines.append("records kept %d, dropped %d (at most %d kept)"
                      % (kept, dropped, self.max_records))
+        from ..native.ctu_writer import ctu_writes
+        lines.append("CTU writes: native %d, python %d"
+                     % (ctu_writes["native"], ctu_writes["python"]))
         text = "\n".join(lines)
         print(text, file=out)
         return text
