@@ -1624,12 +1624,17 @@ def encode_phase(torch, kernels, tag, clip, w, h, frames, qp, preset,
     """One main path: counts to 0, the encode, counts read; every kernel
     in `need` must have launched.  Returns (encoder, record)."""
     from vvenc_tpu_torch.native import ctu_writer
+    from vvenc_tpu_torch.native.deblock import COUNTER
+    from vvenc_tpu_torch.utils.profiler import PROF
     kernels.reset_launches()
     ctu_writer.reset_ctu_writes()
+    deblocked0 = PROF.counts().get(COUNTER, {})
     enc, secs = encode(torch, tag, clip, w, h, frames, qp, preset, extra,
                        plan)
     launches = dict(kernels.launches)
     writes = dict(ctu_writer.ctu_writes)
+    deblocked = {k: PROF.counts().get(COUNTER, {}).get(k, 0)
+                 - deblocked0.get(k, 0) for k in ("native", "python")}
     missing = [n for n in need if launches[n] < 1]
     if missing:
         fail(f"{tag}: {missing} never launched: {launches}")
@@ -1637,9 +1642,10 @@ def encode_phase(torch, kernels, tag, clip, w, h, frames, qp, preset,
     print(f"phase 4: {tag} {w}x{h} x{frames} QP{qp} {preset} "
           f"{' '.join(extra)}: {frames / secs:.3f} fps (encode "
           f"{secs:.3f} s), launches {launches}, CTU writes {writes}, "
-          "decode == recon", flush=True)
+          f"deblocked pictures {deblocked}, decode == recon", flush=True)
     return enc, {"fps": frames / secs, "encode_seconds": secs,
-                 "launches": launches, "ctu_writes": writes}
+                 "launches": launches, "ctu_writes": writes,
+                 "deblock_pictures": deblocked}
 
 
 def tools_phase(clip, w, h, n, tmp) -> dict:
@@ -3137,10 +3143,14 @@ def main(argv=None) -> int:
     write_json(json_path, report)
     print(json.dumps({"kernels": entries}))
     # CTUs of each phase-4 encode that the native CTU writer and the
-    # Python writer coded (native.ctu_writer.ctu_writes)
-    print(json.dumps({"ctu_writes": {
-        t: report[t]["ctu_writes"]
-        for t in ("config1", "hd", "hd_medium", "config2", "config3")}}))
+    # Python writer coded (native.ctu_writer.ctu_writes), and the pictures
+    # that the native and the Python deblocking filtered (PROF's
+    # native.deblock.pictures)
+    phases = ("config1", "hd", "hd_medium", "config2", "config3")
+    print(json.dumps({
+        "ctu_writes": {t: report[t]["ctu_writes"] for t in phases},
+        "native.deblock.pictures": {t: report[t]["deblock_pictures"]
+                                    for t in phases}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -963,7 +963,7 @@ class IntraEncoder(SequenceOrchestratorMixin):
                 ifp.frec[c_][y0b >> sc_:y1b >> sc_] = \
                     ps.rec[c_][y0b >> sc_:y1b >> sc_]
             if ifp_banded:
-                from ..codec.deblock import deblock_picture
+                from ..native.deblock import deblock_picture
                 with PROF.section("stage.deblock"):
                     cus_ = []
                     for t_ in trees:
@@ -1087,7 +1087,7 @@ class IntraEncoder(SequenceOrchestratorMixin):
             for c in (0, 1, 2):
                 ps.rec[c][:] = ifp.frec[c]
         elif cfg.deblocking:
-            from ..codec.deblock import deblock_picture
+            from ..native.deblock import deblock_picture
             with PROF.section("stage.deblock"):
                 cus = []
                 for t in trees:

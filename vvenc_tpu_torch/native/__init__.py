@@ -35,11 +35,47 @@ _BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build" / "native"
 BUILD_ERROR = None  # the compiler's message when the library did not build
 
 
+def enabled() -> bool:
+    """False under VVENC_TPU_NATIVE=0: every native path stays off."""
+    return os.environ.get("VVENC_TPU_NATIVE", "1") != "0"
+
+
+def build_library(src: pathlib.Path, *flag_sets):
+    """g++ `src` into _BUILD_DIR/<stem>-<hash>.so, named by the hash of
+    the source and the first flag set, trying each set in turn (the later
+    ones are portable fallbacks), and load it.  The build lands through
+    an atomic rename, so processes building at once agree; callers that
+    share a process hold a lock.  Returns (the library, None) or (None,
+    the compiler's or loader's message)."""
+    code = src.read_bytes()
+    tag = hashlib.sha256(code + " ".join(flag_sets[0]).encode()) \
+        .hexdigest()[:16]
+    so = _BUILD_DIR / f"{src.stem}-{tag}.so"
+    if not so.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".so.{os.getpid()}.tmp")
+        err = None
+        for flags in flag_sets:
+            try:
+                subprocess.run(["g++", *flags, "-o", str(tmp), str(src)],
+                               check=True, capture_output=True)
+                os.replace(tmp, so)
+                break
+            except subprocess.CalledProcessError as exc:
+                err = exc.stderr.decode(errors="replace")[-4000:]
+            except OSError as exc:
+                err = str(exc)
+        else:
+            return None, err
+    try:
+        return ctypes.CDLL(str(so)), None
+    except OSError as exc:
+        return None, str(exc)
+
+
 def _load():
     global BUILD_ERROR
-    if os.environ.get("VVENC_TPU_NATIVE", "1") == "0":
-        return None
-    if not _SRC.exists():
+    if not enabled() or not _SRC.exists():
         return None
     # -march=native: the kernels are built on (and only run on) this
     # host; the matmul-style transform loops vectorize to AVX2/AVX-512.
@@ -49,36 +85,13 @@ def _load():
     # -include string: native/entropy.cpp uses std::string without
     # including <string>, which g++ 13's libstdc++ no longer pulls in
     # through the headers the file does include.
-    _FLAGS = ["-O3", "-march=native", "-ffp-contract=off",
-              "-shared", "-fPIC", "-std=c++17", "-include", "string"]
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"entropy-{tag}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".so.{os.getpid()}.tmp")
-        try:
-            subprocess.run(
-                ["g++", *_FLAGS, "-o", str(tmp), str(_SRC)],
-                check=True, capture_output=True)
-            os.replace(tmp, so)
-        except (subprocess.CalledProcessError, OSError):
-            # portable fallback (e.g. -march=native unsupported)
-            try:
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                     "-include", "string", "-o", str(tmp), str(_SRC)],
-                    check=True, capture_output=True)
-                os.replace(tmp, so)
-            except subprocess.CalledProcessError as exc:
-                BUILD_ERROR = exc.stderr.decode(errors="replace")[-4000:]
-                return None
-            except OSError as exc:
-                BUILD_ERROR = str(exc)
-                return None
-    try:
-        lib = ctypes.CDLL(str(so))
-    except OSError:
+    # The second set is the portable fallback (e.g. -march=native
+    # unsupported).
+    lib, BUILD_ERROR = build_library(
+        _SRC, ["-O3", "-march=native", "-ffp-contract=off", "-shared",
+               "-fPIC", "-std=c++17", "-include", "string"],
+        ["-O3", "-shared", "-fPIC", "-std=c++17", "-include", "string"])
+    if lib is None:
         return None
 
     lib.vte_init.argtypes = [_PI32,

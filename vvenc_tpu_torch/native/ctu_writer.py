@@ -18,18 +18,14 @@ print it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import subprocess
 import threading
 
 import numpy as np
 
-from . import _LIB
+from . import _LIB, build_library
 
 _SRC = pathlib.Path(__file__).resolve().with_name("ctu_writer.cpp")
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build" / "native"
 _FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
 ctu_writes = {"native": 0, "python": 0}
@@ -67,23 +63,9 @@ class Record:
 
 def _build():
     global BUILD_ERROR
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"ctu_writer-{tag}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".so.{os.getpid()}.tmp")
-        try:
-            subprocess.run(["g++", *_FLAGS, "-o", str(tmp), str(_SRC)],
-                           check=True, capture_output=True)
-            os.replace(tmp, so)
-        except subprocess.CalledProcessError as exc:
-            BUILD_ERROR = exc.stderr.decode(errors="replace")[-4000:]
-            return None
-        except OSError as exc:
-            BUILD_ERROR = str(exc)
-            return None
-    lib = ctypes.CDLL(str(so))
+    lib, BUILD_ERROR = build_library(_SRC, _FLAGS)
+    if lib is None:
+        return None
     lib.vtw_init.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.vtw_init.restype = None
     lib.vtw_write_ctu.argtypes = (
